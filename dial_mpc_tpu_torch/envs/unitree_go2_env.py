@@ -1,0 +1,261 @@
+"""Unitree Go2 quadruped: velocity-tracking walk with gait shaping.
+
+The reward stack runs inside the batched rollout hot loop, so every term is
+elementwise work on the already-computed physics products (site_xpos, x/xd
+views), on (B, ...) tensors, with no host round trips.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Union
+
+import torch
+
+from dial_mpc_tpu_torch.config.base_env_config import BaseEnvConfig
+from dial_mpc_tpu_torch.envs import register_env
+from dial_mpc_tpu_torch.envs.base_env import BaseEnv, State
+from dial_mpc_tpu_torch.physics import maths
+from dial_mpc_tpu_torch.physics.compiled_model import load_scene
+from dial_mpc_tpu_torch.utils.function_utils import get_foot_step, global_to_body_velocity
+
+
+@dataclass
+class UnitreeGo2EnvConfig(BaseEnvConfig):
+    kp: Union[float, torch.Tensor] = 30.0
+    kd: Union[float, torch.Tensor] = 0.0
+    default_vx: float = 1.0
+    default_vy: float = 0.0
+    default_vyaw: float = 0.0
+    ramp_up_time: float = 2.0
+    gait: str = "trot"
+
+
+# gait tables: per-leg phase offsets, and (duty_ratio, cadence, amplitude)
+GAIT_PHASES = {
+    "stand": (0.0, 0.0, 0.0, 0.0),
+    "walk": (0.0, 0.5, 0.75, 0.25),
+    "trot": (0.0, 0.5, 0.5, 0.0),
+    "canter": (0.0, 0.33, 0.33, 0.66),
+    "gallop": (0.0, 0.05, 0.4, 0.35),
+}
+GAIT_PARAMS = {
+    "stand": (1.0, 1.0, 0.0),
+    "walk": (0.75, 1.0, 0.08),
+    "trot": (0.45, 2, 0.08),
+    "canter": (0.4, 4, 0.06),
+    "gallop": (0.3, 3.5, 0.10),
+}
+
+
+class UnitreeGo2Env(BaseEnv):
+    """Velocity-tracking walk with gait shaping."""
+
+    def __init__(self, config: UnitreeGo2EnvConfig, device="cuda", dtype=torch.float32):
+        super().__init__(config, device=device, dtype=dtype)
+
+        self._foot_radius = 0.0175
+        self._gait = config.gait
+        self._torso_idx = self.mj_model.body_id("base")
+        home = self.mj_model.keyframe_qpos("home")
+        self._init_q = self._tensor(home)
+        self._default_pose = home[7:]
+
+        # task-space joint limits, tighter than the physical ones
+        self.joint_range = self._tensor(
+            [
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -0.85],
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -0.85],
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -1.3],
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -1.3],
+            ]
+        )
+
+        self._feet_site_id = [
+            self.mj_model.site_id(f) for f in ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
+        ]
+        self._gait_phases = self._tensor(GAIT_PHASES[self._gait])
+        self._head_offset = self._tensor([0.285, 0.0, 0.0])
+        self._up = self._tensor([0.0, 0.0, 1.0])
+
+    def make_system(self, config: UnitreeGo2EnvConfig):
+        mj_model = load_scene("unitree_go2", "mjx_scene_force.xml")
+        mj_model.opt.timestep = config.timestep
+        return mj_model
+
+    def reset(self, generator: torch.Generator = None) -> State:
+        """The B = 1 start state. ``generator`` draws the velocity commands
+        when ``randomize_tasks`` is set (it must live on the env's device)."""
+        self._generator = generator
+        pipeline_state = self.pipeline_init(
+            self._init_q[None], torch.zeros(1, self._nv, device=self.device, dtype=self.dtype)
+        )
+        z = lambda *shape: torch.zeros(1, *shape, device=self.device, dtype=self.dtype)
+        state_info = {
+            "pos_tar": self._tensor([[0.282, 0.0, 0.3]]),
+            "vel_tar": z(3),
+            "ang_vel_tar": z(3),
+            "yaw_tar": z(),
+            "step": torch.zeros(1, dtype=torch.int32, device=self.device),
+            "z_feet": z(4),
+            "z_feet_tar": z(4),
+            "randomize_target": self._config.randomize_tasks,
+            "last_contact": torch.zeros(1, 4, dtype=torch.bool, device=self.device),
+            "feet_air_time": z(4),
+        }
+        obs = self._get_obs(pipeline_state, state_info)
+        return State(pipeline_state, obs, z(), z(), {}, state_info)
+
+    def step(self, state: State, action: torch.Tensor, pipeline_next=None) -> State:
+        # action -> physics ctrl
+        if self._config.leg_control == "position":
+            ctrl = self.act2joint(action)
+        else:
+            ctrl = self.act2tau(action, state.pipeline_state)
+        pipeline_state = self.advance(state, ctrl, pipeline_next)
+        x_pos = pipeline_state.x_pos
+        x_rot = pipeline_state.x_rot
+
+        obs = self._get_obs(pipeline_state, state.info)
+
+        # command update: ramp toward the (possibly re-randomized) target
+        step = state.info["step"]
+        stepf = step.to(self.dtype)[:, None]
+        B = step.shape[0]
+        vel_tar = self._tensor([self._config.default_vx, self._config.default_vy, 0.0]).expand(B, 3)
+        ang_vel_tar = self._tensor([0.0, 0.0, self._config.default_vyaw]).expand(B, 3)
+        if state.info["randomize_target"]:
+            resample = (step % 500 == 0)[:, None]
+            new_vel, new_ang = self.sample_command()  # one draw shared by the batch
+            vel_tar = torch.where(resample, new_vel, vel_tar)
+            ang_vel_tar = torch.where(resample, new_ang, ang_vel_tar)
+        info = dict(state.info)
+        ramp_up_time = self._config.ramp_up_time
+        info["vel_tar"] = torch.minimum(vel_tar * stepf * self.dt / ramp_up_time, vel_tar)
+        info["ang_vel_tar"] = torch.minimum(
+            ang_vel_tar * stepf * self.dt / ramp_up_time, ang_vel_tar
+        )
+
+        # ---- reward stack ----
+        torso = self._torso_idx - 1
+        torso_rot = x_rot[:, torso]
+
+        # gait tracking
+        z_feet = pipeline_state.site_xpos[:, self._feet_site_id, 2]
+        duty_ratio, cadence, amplitude = GAIT_PARAMS[self._gait]
+        z_feet_tar = get_foot_step(
+            duty_ratio, cadence, amplitude, self._gait_phases, stepf[:, 0] * self.dt
+        )
+        reward_gaits = -(((z_feet_tar - z_feet) / 0.05) ** 2).sum(-1)
+
+        # contact bookkeeping / air-time bonus
+        foot_contact_z = z_feet - self._foot_radius
+        contact = foot_contact_z < 1e-3
+        contact_filt_mm = contact | state.info["last_contact"]
+        first_contact = (state.info["feet_air_time"] > 0) * contact_filt_mm
+        feet_air_time = state.info["feet_air_time"] + self.dt
+        reward_air_time = ((feet_air_time - 0.1) * first_contact).sum(-1)
+
+        # head-position tracking (uses the *updated* velocity command)
+        pos_tar = state.info["pos_tar"] + info["vel_tar"] * self.dt * stepf
+        pos = x_pos[:, torso]
+        R = maths.quat_to_mat(torso_rot)
+        head_pos = pos + R @ self._head_offset
+        reward_pos = -((head_pos - pos_tar) ** 2).sum(-1)
+
+        # upright
+        vec = maths.rotate(self._up, x_rot[:, 0])
+        reward_upright = -((vec - self._up) ** 2).sum(-1)
+
+        # yaw tracking
+        yaw_tar = state.info["yaw_tar"] + info["ang_vel_tar"][:, 2] * self.dt * stepf[:, 0]
+        yaw = maths.quat_to_euler(torso_rot)[:, 2]
+        d_yaw = yaw - yaw_tar
+        reward_yaw = -torch.square(torch.atan2(torch.sin(d_yaw), torch.cos(d_yaw)))
+
+        # body-frame velocity tracking (the pi/180 factor on the angular
+        # velocity is part of the task definition)
+        vb = global_to_body_velocity(pipeline_state.xd_vel[:, torso], torso_rot)
+        ab = global_to_body_velocity(pipeline_state.xd_ang[:, torso] * math.pi / 180.0, torso_rot)
+        reward_vel = -((vb[:, :2] - info["vel_tar"][:, :2]) ** 2).sum(-1)
+        reward_ang_vel = -((ab[:, 2] - info["ang_vel_tar"][:, 2]) ** 2)
+
+        # height
+        reward_height = -((x_pos[:, torso, 2] - state.info["pos_tar"][:, 2]) ** 2)
+
+        # energy
+        reward_energy = -(
+            torch.clamp_min(ctrl * pipeline_state.qvel[:, 6 : 6 + self._nu] / 160.0, 0.0) ** 2
+        ).sum(-1)
+
+        reward_alive = 1.0 - state.done
+
+        reward = (
+            reward_gaits * 0.1
+            + reward_air_time * 0.0
+            + reward_pos * 0.0
+            + reward_upright * 0.5
+            + reward_yaw * 0.3
+            + reward_vel * 1.0
+            + reward_ang_vel * 1.0
+            + reward_height * 1.0
+            + reward_energy * 0.00
+            + reward_alive * 0.0
+        )
+
+        # termination
+        joint_angles = pipeline_state.qpos[:, 7:]
+        done = (maths.rotate(self._up, torso_rot) * self._up).sum(-1) < 0
+        done = done | (joint_angles < self.joint_range[:, 0]).any(-1)
+        done = done | (joint_angles > self.joint_range[:, 1]).any(-1)
+        done = done | (x_pos[:, torso, 2] < 0.18)
+        done = done.to(self.dtype)
+
+        # bookkeeping
+        info["step"] = step + 1
+        info["z_feet"] = z_feet
+        info["z_feet_tar"] = z_feet_tar
+        info["feet_air_time"] = feet_air_time * ~contact_filt_mm
+        info["last_contact"] = contact
+
+        return state.replace(
+            pipeline_state=pipeline_state, obs=obs, reward=reward, done=done, info=info
+        )
+
+    def _get_obs(self, pipeline_state, state_info) -> torch.Tensor:
+        torso = self._torso_idx - 1
+        torso_rot = pipeline_state.x_rot[:, torso]
+        vb = global_to_body_velocity(pipeline_state.xd_vel[:, torso], torso_rot)
+        ab = global_to_body_velocity(pipeline_state.xd_ang[:, torso] * math.pi / 180.0, torso_rot)
+        return torch.cat(
+            [
+                state_info["vel_tar"],
+                state_info["ang_vel_tar"],
+                pipeline_state.ctrl,
+                pipeline_state.qpos,
+                vb,
+                ab,
+                pipeline_state.qvel[:, 6:],
+            ],
+            dim=-1,
+        )
+
+    def sample_command(self):
+        """One uniform velocity command: (1, 3) linear and (1, 3) angular."""
+        u = torch.rand(1, 3, generator=self._generator, device=self.device, dtype=self.dtype)
+        zero = torch.zeros_like(u[:, 0])
+        lin = torch.stack([u[:, 0] * 3.0 - 1.5, u[:, 1] * 1.0 - 0.5, zero], dim=-1)
+        ang = torch.stack([zero, zero, u[:, 2] * 3.0 - 1.5], dim=-1)
+        return lin, ang
+
+
+register_env("unitree_go2_walk", UnitreeGo2Env, UnitreeGo2EnvConfig)

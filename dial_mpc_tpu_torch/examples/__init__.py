@@ -1,0 +1,10 @@
+"""Example configurations this package can run.
+
+The YAML files themselves are shared with the JAX package and read in place
+(``utils.io_utils.get_example_path``); this list names the ones whose
+environment is available here.
+"""
+
+examples = [
+    "unitree_go2_trot",
+]

@@ -1,0 +1,567 @@
+"""The whole-physics-step CUDA kernel: build, wrapper and plain version.
+
+``step_core(model, qpos, qvel, ctrl, n_steps)`` advances a batch of samples
+by ``n_steps`` physics steps under constant ctrl and returns the 11 products
+the task environments consume. On CUDA tensors it launches the hand-written
+kernel of ``csrc/engine_step.cu`` (one sample per thread) or raises; on CPU
+tensors it runs :func:`step_core_reference`, the same function in plain
+PyTorch on top of ``physics.forward.step``.
+
+The kernel's code is C++ in ``csrc/``. What is generated here, at build
+time and into the build directory, is only ``model_constants.h``: the
+model's sizes, tree topology, frames, inertias, pair table, sparsity
+patterns and solver schedule as initialisers of constant-memory structs.
+One shared library is built per model key and cached by a hash of sources
+and header; it exposes a plain C interface and is loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+import weakref
+
+import numpy as np
+import torch
+
+from dial_mpc_tpu_torch.physics.forward import step as physics_step
+from dial_mpc_tpu_torch.physics.model import (
+    PLANE,
+    SPHERE,
+    Contact,
+    Data,
+    Model,
+    put_model,
+)
+
+FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_REPO_ROOT = os.path.dirname(os.path.dirname(_CSRC))
+_SOURCES = ("engine_step.cu", "lane_math.cuh", "model_consts.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+OUTPUT_NAMES = (
+    "qpos", "qvel", "site_xpos", "site_xmat", "x_pos", "x_rot",
+    "xd_vel", "xd_ang", "cdist", "cpos", "qacc",
+)
+
+
+def out_specs(m: Model):
+    """(name, row count) of the 11 outputs; counts are clamped to >= 1."""
+    nbody1 = m.nbody - 1
+    return [
+        ("qpos", m.nq),
+        ("qvel", m.nv),
+        ("site_xpos", max(m.nsite * 3, 1)),
+        ("site_xmat", max(m.nsite * 9, 1)),
+        ("x_pos", nbody1 * 3),
+        ("x_rot", nbody1 * 4),
+        ("xd_vel", nbody1 * 3),
+        ("xd_ang", nbody1 * 3),
+        ("cdist", max(m.ncon, 1)),
+        ("cpos", max(m.ncon, 1) * 3),
+        ("qacc", m.nv),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# scope of the kernel
+# ---------------------------------------------------------------------------
+
+
+def check_supported(m: Model) -> None:
+    """Raise NotImplementedError for a model the CUDA kernel does not cover."""
+    if m.opt.cone == 1:
+        raise NotImplementedError("CUDA step kernel: elliptic friction cones are not ported yet")
+    if not m.opt.disable_eulerdamp:
+        raise NotImplementedError(
+            "CUDA step kernel: implicit joint damping (eulerdamp) is not ported yet"
+        )
+    if m.opt.integrator != 0:
+        raise NotImplementedError("CUDA step kernel: only the Euler integrator is ported")
+    if any(f > 0 for f in m.dof_frictionloss_static):
+        raise NotImplementedError("CUDA step kernel: friction-loss dofs are not ported yet")
+    if m.ncon and m.opt.disable_contact:
+        raise NotImplementedError("CUDA step kernel: the contact-disable flag is not ported yet")
+    for jt in m.jnt_type:
+        if jt not in (FREE, HINGE):
+            name = {BALL: "ball", SLIDE: "slide"}.get(jt, str(jt))
+            raise NotImplementedError(f"CUDA step kernel: {name} joints are not ported yet")
+    for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
+        if (t1, t2) != (PLANE, SPHERE):
+            raise NotImplementedError(
+                f"CUDA step kernel: collision pair of geom types {(t1, t2)} is not ported yet"
+            )
+        if condim != 3:
+            raise NotImplementedError(
+                f"CUDA step kernel: contact dimension {condim} is not ported yet"
+            )
+
+
+def model_key(m: Model) -> tuple:
+    """What a compiled library depends on besides the constants themselves."""
+    return (
+        m.pair_table, m.nq, m.nv, m.nu, m.jnt_type, m.opt.cone, m.opt.iterations,
+        m.opt.ls_iterations, m.opt.disableflags, float(m.opt.timestep),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the generated header
+# ---------------------------------------------------------------------------
+
+
+def _fill_closed_pattern(mask: np.ndarray) -> np.ndarray:
+    """Pattern of the Cholesky factor of P mask P^T, P reversing the order.
+
+    Children-first elimination of a tree-structured pattern has no fill-in;
+    whatever fill the constraint rows add is found symbolically here.
+    """
+    n = mask.shape[0]
+    pat = mask[::-1, ::-1].astype(bool).copy()
+    for j in range(n):
+        below = [i for i in range(j + 1, n) if pat[i, j]]
+        for a in range(len(below)):
+            for b in range(a + 1, len(below)):
+                pat[below[b], below[a]] = True
+                pat[below[a], below[b]] = True
+    return pat
+
+
+def static_layout(m: Model) -> dict:
+    """Index tables and sparsity patterns of the kernel, as numpy arrays."""
+    nv = m.nv
+    chain = m.body_chain_mask.cpu().numpy() > 0
+    anc = m.dof_ancestor_mask.cpu().numpy() > 0
+    m_mask = anc | anc.T | np.eye(nv, dtype=bool)
+
+    limit_jnt = []
+    if not m.opt.disable_limit:
+        limit_jnt = [
+            j for j in range(m.njnt) if m.jnt_limited[j] and m.jnt_type[j] in (SLIDE, HINGE)
+        ]
+    cgeoms = sorted({g for p in m.pair_table for g in p[:2]})
+    cg_index = {g: k for k, g in enumerate(cgeoms)}
+    con_body1, con_body2 = [], []
+    for (g1, g2, *_rest) in m.pair_table:
+        con_body1.append(m.geom_bodyid_static[g1])
+        con_body2.append(m.geom_bodyid_static[g2])
+
+    sup = []
+    for j in limit_jnt:
+        row = np.zeros(nv, dtype=bool)
+        row[m.jnt_dofadr[j]] = True
+        sup.append(row)
+    for b1, b2 in zip(con_body1, con_body2):
+        for _facet in range(4):
+            sup.append(chain[b1] | chain[b2])
+    j_sup = np.array(sup, dtype=bool).reshape(len(sup), nv)
+    h_mask = m_mask.copy()
+    for row in j_sup:
+        h_mask |= np.outer(row, row)
+
+    return dict(
+        limit_jnt=np.array(limit_jnt, dtype=np.int64),
+        cgeoms=cgeoms,
+        pair_g1=np.array([cg_index[p[0]] for p in m.pair_table], dtype=np.int64),
+        pair_g2=np.array([cg_index[p[1]] for p in m.pair_table], dtype=np.int64),
+        pair_conadr=np.array([p[5] for p in m.pair_table], dtype=np.int64),
+        con_body1=np.array(con_body1, dtype=np.int64),
+        con_body2=np.array(con_body2, dtype=np.int64),
+        chain_mask=chain, m_mask=m_mask, h_mask=h_mask,
+        m_pat=_fill_closed_pattern(m_mask), h_pat=_fill_closed_pattern(h_mask),
+        j_sup=j_sup,
+    )
+
+
+def _c_init(a, integer: bool) -> str:
+    """A numpy array as a nested brace initialiser (``{0}`` when empty)."""
+    a = np.asarray(a)
+    if a.ndim == 0:
+        return str(int(a)) if integer else repr(float(a))
+    if a.size == 0:
+        return "{0}"
+    if a.ndim == 1:
+        return "{" + ", ".join(str(int(v)) if integer else repr(float(v)) for v in a) + "}"
+    return "{" + ", ".join(_c_init(row, integer) for row in a) + "}"
+
+
+def render_constants_header(m: Model) -> str:
+    """The text of ``model_constants.h`` for this model."""
+    check_supported(m)
+    lay = static_layout(m)
+    cg = lay["cgeoms"]
+
+    def r(t):  # real-valued tensor -> float64 numpy
+        return t.detach().cpu().double().numpy()
+
+    sub_mass = r(m.body_mass).copy()
+    for b in range(m.nbody - 1, 0, -1):
+        sub_mass[m.body_parentid[b]] += sub_mass[b]
+
+    nefc = len(lay["limit_jnt"]) + 4 * m.ncon
+    assert lay["j_sup"].shape[0] == nefc
+    sizes = dict(
+        NQ=m.nq, NV=m.nv, NU=m.nu, NBODY=m.nbody, NJNT=m.njnt, NSITE=m.nsite,
+        NCON=m.ncon, NPAIR=len(m.pair_table), NCGEOM=len(cg),
+        NLIMIT=len(lay["limit_jnt"]), NEFC=nefc,
+        ITERATIONS=m.opt.iterations, LS_ITERATIONS=m.opt.ls_iterations,
+    )
+    ints = dict(
+        body_parentid=m.body_parentid, body_rootid=m.body_rootid,
+        body_jntadr=m.body_jntadr, body_jntnum=m.body_jntnum,
+        body_dofadr=m.body_dofadr, body_dofnum=m.body_dofnum,
+        jnt_type=m.jnt_type, jnt_qposadr=m.jnt_qposadr, jnt_dofadr=m.jnt_dofadr,
+        jnt_bodyid=m.jnt_bodyid, dof_bodyid=m.dof_bodyid,
+        site_bodyid=m.site_bodyid.cpu().numpy(),
+        cgeom_bodyid=[m.geom_bodyid_static[g] for g in cg],
+        pair_g1=lay["pair_g1"], pair_g2=lay["pair_g2"], pair_conadr=lay["pair_conadr"],
+        con_body1=lay["con_body1"], con_body2=lay["con_body2"],
+        limit_jnt=lay["limit_jnt"],
+        act_dofadr=m.actuator_dofadr.cpu().numpy(),
+        act_qposadr=[m.jnt_qposadr[t] for t in m.actuator_trnid],
+        act_affine=[int(bt == 1) for bt in m.actuator_biastype],
+        act_ctrllimited=(r(m.actuator_ctrllimited) > 0).astype(np.int64),
+        act_forcelimited=(r(m.actuator_forcelimited) > 0).astype(np.int64),
+        chain_mask=lay["chain_mask"], m_mask=lay["m_mask"], h_mask=lay["h_mask"],
+        m_pat=lay["m_pat"], h_pat=lay["h_pat"], j_sup=lay["j_sup"],
+    )
+    reals = dict(
+        body_pos=r(m.body_pos), body_quat=r(m.body_quat), body_ipos=r(m.body_ipos),
+        body_iquat=r(m.body_iquat), body_mass=r(m.body_mass),
+        body_inertia=r(m.body_inertia), body_invweight0=r(m.body_invweight0),
+        subtree_mass_inv=1.0 / np.maximum(sub_mass, 1e-15),
+        jnt_pos=r(m.jnt_pos), jnt_axis=r(m.jnt_axis), jnt_range=r(m.jnt_range),
+        jnt_solref=r(m.jnt_solref), jnt_solimp=r(m.jnt_solimp), jnt_margin=r(m.jnt_margin),
+        qpos0=r(m.qpos0), dof_armature=r(m.dof_armature), dof_damping=r(m.dof_damping),
+        dof_invweight0=r(m.dof_invweight0),
+        cgeom_pos=r(m.geom_pos)[cg], cgeom_quat=r(m.geom_quat)[cg],
+        cgeom_size=r(m.geom_size)[cg],
+        site_pos=r(m.site_pos), site_quat=r(m.site_quat),
+        act_gear=r(m.actuator_gear), act_gain=r(m.actuator_gainprm)[:, 0],
+        act_bias=r(m.actuator_biasprm)[:, :3], act_ctrlrange=r(m.actuator_ctrlrange),
+        act_forcerange=r(m.actuator_forcerange),
+        con_friction=r(m.con_friction), con_solref=r(m.con_solref),
+        con_solimp=r(m.con_solimp), con_includemargin=r(m.con_includemargin),
+        gravity=r(m.opt.gravity), timestep=r(m.opt.timestep),
+        tolerance=np.float64(m.opt.tolerance),
+    )
+    lines = [
+        "// Generated from the loaded model by engine_cuda.render_constants_header.",
+        "// Sizes, topology, frames, inertias, pair table, sparsity patterns and",
+        "// solver schedule; the kernel's code is in csrc/ and is not generated.",
+        "#pragma once",
+    ]
+    lines += [f"#define MC_{k} {int(v)}" for k, v in sizes.items()]
+    for k, v in ints.items():
+        lines.append(f"#define MCI_{k} {_c_init(np.asarray(v).astype(np.int64), True)}")
+    for k, v in reals.items():
+        v = np.asarray(v, dtype=np.float64)
+        if not np.isfinite(v).all():
+            raise ValueError(f"model constant {k} is not finite")
+        lines.append(f"#define MCI_{k} {_c_init(v, False)}")
+    return "\n".join(lines) + "\n"
+
+
+def step_flops(m: Model) -> int:
+    """Floating-point operations of one step of one sample, counted from the
+    model's static structure the way the kernel walks it (an add, a multiply,
+    a divide, a square root or a sine each count one). The Newton schedule is
+    static, so the count does not depend on the data."""
+    lay = static_layout(m)
+    nv, nb, nefc = m.nv, m.nbody, lay["j_sup"].shape[0]
+    cross, dot3, dot6, qmul, qrot, q2m = 9, 5, 11, 28, 30, 27
+    n_free = sum(1 for t in m.jnt_type if t == FREE)
+    n_hinge = m.njnt - n_free
+    f = 0
+    # kinematics, inertial frames, subtree CoM
+    f += (nb - 1) * (qrot + 3 + qmul + 12) + n_free * 12 + n_hinge * (3 * qrot + qmul + 14)
+    f += nb * (qrot + 3 + 3) + (nb - 1) * 3 + nb * 3
+    # spatial inertias and dof subspaces
+    f += nb * (3 + qmul + q2m + 9 * (5 + 2 + 6 + 2))
+    f += n_free * (q2m + 3 + 3 * cross) + n_hinge * (3 + cross)
+    # com velocities, RNE
+    f += nv * (cross * 3 + 3 + 12) + (nb - 1) * (6 * 11 * 2 + 3 * cross + 6 + 6 + 6)
+    f += nv * (12 + dot6)
+    # CRB: composite inertias, F = I cdof, masked M entries
+    f += (nb - 1) * 36 + nv * 6 * dot6 + int(np.tril(lay["m_mask"]).sum()) * dot6 + nv
+    # passive + actuation
+    f += 2 * nv + 4 * m.nu
+
+    def chol(pat):
+        c = 0
+        for j in range(nv):
+            c += 2 * int(pat[j, :j].sum()) + 3
+            for i in range(j + 1, nv):
+                if pat[i, j]:
+                    c += 2 * int((pat[i, :j] & pat[j, :j]).sum()) + 1
+        return c + 2 * (2 * int(np.tril(pat, -1).sum()) + nv)
+
+    f += chol(lay["m_pat"])
+    # collision and constraint rows
+    f += len(m.pair_table) * (2 * qrot + qmul + q2m + 6 + dot3 + 12 + 2 * cross + 8)
+    kbi = 40
+    f += len(lay["limit_jnt"]) * (kbi + 10)
+    sup_c = int(lay["j_sup"][len(lay["limit_jnt"]):].sum())
+    f += m.ncon * (kbi + 12) + (sup_c // 4) * (2 * (cross + 3) + 3 + 3 * dot3) + sup_c * 5
+    f += 4 * m.ncon * (kbi + 4)
+    # Newton solve
+    nsup = int(lay["j_sup"].sum())
+    pair_ops = sum(int(r.sum()) * (int(r.sum()) + 1) // 2 for r in lay["j_sup"])
+    m_nnz = int(lay["m_mask"].sum())
+    per_ls = 2 * nefc + 4 + 8 * nefc + 4
+    per_iter = (
+        5 * nefc + 2 * nv + 2 * nsup + nv + nsup + 2 * pair_ops + chol(lay["h_pat"])
+        + 2 * nsup + 2 * m_nnz + 4 * nv + max(m.opt.ls_iterations, 1) * per_ls
+        + 2 * nefc + 4 * nefc + 6 * nv + 6 * nv + 2 * nefc
+    )
+    f += 2 * nsup + nefc + m.opt.iterations * per_iter
+    # integration and views
+    f += 2 * nv + 2 * m.nq + n_free * (qmul + 30) + (nb - 1) * (3 + cross + 3)
+    f += m.nsite * (qrot + 3 + qmul + q2m)
+    return int(f)
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+
+class EngineLibrary:
+    """A loaded shared library for one model key."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.lib = ctypes.CDLL(path)
+        for name in ("engine_step_f32", "engine_step_f64"):
+            fn = getattr(self.lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        self.lib.engine_in_rows.restype = ctypes.c_int
+        self.lib.engine_out_rows.restype = ctypes.c_int
+        self.in_rows = self.lib.engine_in_rows()
+        self.out_rows = self.lib.engine_out_rows()
+
+    def fn(self, dtype: torch.dtype):
+        if dtype == torch.float32:
+            return self.lib.engine_step_f32
+        if dtype == torch.float64:
+            return self.lib.engine_step_f64
+        raise TypeError(f"CUDA step kernel: dtype {dtype} is not supported (float32/float64)")
+
+
+_LIBS: dict = {}  # model key -> EngineLibrary
+_LIB_OF_MODEL = weakref.WeakKeyDictionary()  # Model -> EngineLibrary
+
+
+def exact_model(m: Model) -> Model:
+    """The float64 twin of a Model, from the compiled scene it was put from.
+
+    The header's literals must not depend on the dtype a Model was put in:
+    one library serves float32 and float64, and each kernel rounds the exact
+    constants once, at compile time, to the type it computes in.
+    """
+    if m.dtype == torch.float64 or m.mj_model is None:
+        return m
+    return put_model(m.mj_model, device="cpu", dtype=torch.float64)
+
+
+def build_dir() -> str:
+    return os.environ.get("DIAL_MPC_BUILD_DIR", os.path.join(_REPO_ROOT, "build", "engine_cuda"))
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("CUDA step kernel: nvcc not found; the kernel cannot be built")
+    return nvcc
+
+
+def load_library(m: Model) -> EngineLibrary:
+    """Build (at first use) and load the kernel library for this model."""
+    lib = _LIB_OF_MODEL.get(m)
+    if lib is not None:
+        return lib
+    m_in, m = m, exact_model(m)
+    key = model_key(m)
+    if key in _LIBS:
+        _LIB_OF_MODEL[m_in] = _LIBS[key]
+        return _LIBS[key]
+    header = render_constants_header(m)
+    h = hashlib.sha256(header.encode())
+    for name in _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
+    out_dir = os.path.join(build_dir(), tag)
+    so_path = os.path.join(out_dir, "libengine_step.so")
+    log_path = os.path.join(out_dir, "build.log")
+    seconds = 0.0
+    if not os.path.exists(so_path):
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "model_constants.h"), "w") as f:
+            f.write(header)
+        tmp = so_path + f".tmp{os.getpid()}"
+        cmd = [
+            _find_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", _CSRC,
+            "-o", tmp, os.path.join(_CSRC, "engine_step.cu"),
+        ]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        with open(log_path, "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA step kernel: nvcc failed\n{log[-8000:]}")
+        os.replace(tmp, so_path)
+    with open(log_path) as f:
+        log = f.read()
+    lib = EngineLibrary(so_path, seconds, log)
+    expect_in, expect_out = m.nq + m.nv + m.nu, sum(n for _, n in out_specs(m))
+    if (lib.in_rows, lib.out_rows) != (expect_in, expect_out):
+        raise RuntimeError(
+            f"CUDA step kernel: library rows {(lib.in_rows, lib.out_rows)} "
+            f"do not match the model's {(expect_in, expect_out)}"
+        )
+    _LIBS[key] = _LIB_OF_MODEL[m_in] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(m: Model, qpos, qvel, ctrl, n_steps: int):
+    if not isinstance(n_steps, int) or n_steps < 1:
+        raise ValueError(f"n_steps must be a positive int, got {n_steps!r}")
+    for name, t, n in (("qpos", qpos, m.nq), ("qvel", qvel, m.nv), ("ctrl", ctrl, m.nu)):
+        if t.dim() != 2 or t.shape[1] != n:
+            raise ValueError(f"{name} must have shape (B, {n}), got {tuple(t.shape)}")
+        if t.shape[0] != qpos.shape[0]:
+            raise ValueError("qpos, qvel and ctrl must share the batch size")
+        if t.device != qpos.device or t.dtype != qpos.dtype:
+            raise ValueError("qpos, qvel and ctrl must share device and dtype")
+    if qpos.shape[0] < 1:
+        raise ValueError("empty batch")
+
+
+def _split_outputs(m: Model, packed: torch.Tensor):
+    """(B, rows) -> the 11 outputs as column views."""
+    outs, o = [], 0
+    for _, n in out_specs(m):
+        outs.append(packed[:, o : o + n])
+        o += n
+    return tuple(outs)
+
+
+def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
+    """n_steps physics steps under constant ctrl -> tuple of 11 (B, n) outputs.
+
+    Outputs, in order: qpos, qvel (after the last step), site_xpos,
+    site_xmat, x_pos, x_rot, xd_vel, xd_ang, cdist, cpos (at the last
+    step's pre-integration kinematics) and qacc of the last step. CUDA
+    tensors go to the kernel; CPU tensors go to the plain version.
+    """
+    _check_inputs(m, qpos, qvel, ctrl, n_steps)
+    if qpos.device.type == "cpu":
+        return step_core_reference(m, qpos, qvel, ctrl, n_steps)
+    if qpos.device.type != "cuda":
+        raise ValueError(f"CUDA step kernel: unsupported device {qpos.device}")
+    if m.device != qpos.device:
+        raise ValueError(f"model is on {m.device}, inputs on {qpos.device}")
+    lib = load_library(m)
+    fn = lib.fn(qpos.dtype)
+    B = qpos.shape[0]
+    # sample axis contiguous: (rows, B)
+    packed_in = torch.cat([qpos, qvel, ctrl], dim=1).t().contiguous()
+    packed_out = torch.empty((lib.out_rows, B), dtype=qpos.dtype, device=qpos.device)
+    with torch.cuda.device(qpos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B, n_steps, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA step kernel: launch failed with cudaError {err}")
+    step_core.launches += 1
+    return _split_outputs(m, packed_out.t().contiguous())
+
+
+step_core.launches = 0
+
+
+def step_core_reference(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
+    """The plain PyTorch version of :func:`step_core` (any device)."""
+    _check_inputs(m, qpos, qvel, ctrl, n_steps)
+    B = qpos.shape[0]
+    d = Data(qpos=qpos, qvel=qvel, ctrl=ctrl, time=qpos.new_zeros(B))
+    for _ in range(n_steps):
+        d = physics_step(m, d)
+    zero1 = qpos.new_zeros(B, 1)
+    return (
+        d.qpos,
+        d.qvel,
+        d.site_xpos.reshape(B, -1) if m.nsite else zero1,
+        d.site_xmat.reshape(B, -1) if m.nsite else zero1,
+        d.x_pos.reshape(B, -1),
+        d.x_rot.reshape(B, -1),
+        d.xd_vel.reshape(B, -1),
+        d.xd_ang.reshape(B, -1),
+        d.contact.dist if m.ncon else zero1,
+        d.contact.pos.reshape(B, -1) if m.ncon else qpos.new_zeros(B, 3),
+        d.qacc,
+    )
+
+
+def _lean_contact(m: Model, dist, pos) -> Contact:
+    return Contact(
+        dist=dist, pos=pos, frame=None, geom=m.con_geom,
+        includemargin=m.con_includemargin, friction=m.con_friction,
+        solref=m.con_solref, solimp=m.con_solimp, dim=m.con_dim,
+    )
+
+
+def lean_data(m: Model, d_prev: Data, outs, ctrl, elapsed) -> Data:
+    """Assemble the lean Data carried through rollouts from core outputs."""
+    (qpos, qvel, site_xpos, site_xmat, x_pos, x_rot, xd_vel, xd_ang,
+     cdist, cpos, qacc) = outs
+    B, nbody1 = qpos.shape[0], m.nbody - 1
+    return Data(
+        qpos=qpos,
+        qvel=qvel,
+        ctrl=ctrl,
+        time=d_prev.time + elapsed,
+        site_xpos=site_xpos[:, : m.nsite * 3].reshape(B, m.nsite, 3),
+        site_xmat=site_xmat[:, : m.nsite * 9].reshape(B, m.nsite, 3, 3),
+        x_pos=x_pos.reshape(B, nbody1, 3),
+        x_rot=x_rot.reshape(B, nbody1, 4),
+        xd_vel=xd_vel.reshape(B, nbody1, 3),
+        xd_ang=xd_ang.reshape(B, nbody1, 3),
+        qacc=qacc,
+        contact=_lean_contact(m, cdist[:, : m.ncon], cpos.reshape(B, -1, 3)[:, : m.ncon]),
+    )
+
+
+def trim_data(m: Model, d: Data) -> Data:
+    """Full Data -> the same lean structure lean_data produces."""
+    contact = _lean_contact(m, d.contact.dist, d.contact.pos) if d.contact is not None else None
+    return Data(
+        qpos=d.qpos, qvel=d.qvel, ctrl=d.ctrl, time=d.time,
+        site_xpos=d.site_xpos, site_xmat=d.site_xmat,
+        x_pos=d.x_pos, x_rot=d.x_rot, xd_vel=d.xd_vel, xd_ang=d.xd_ang,
+        qacc=d.qacc, contact=contact,
+    )

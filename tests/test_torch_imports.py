@@ -1,0 +1,139 @@
+"""The PyTorch port stands on its own: it imports neither ``jax`` nor the
+JAX package, and its entry points run on the card or raise.
+
+Run with:  python -m pytest tests/test_torch_*.py -q
+"""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dial_mpc_tpu_torch")
+SOURCES = sorted(glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)) + [
+    os.path.join(ROOT, "chip_smoke.py")
+]
+FORBIDDEN = ("jax", "jaxlib", "flax", "dial_mpc_tpu")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_sources_found():
+    names = {os.path.relpath(p, ROOT) for p in SOURCES}
+    for expected in ("chip_smoke.py", "dial_mpc_tpu_torch/core/runner.py",
+                     "dial_mpc_tpu_torch/physics/engine_cuda.py", "dial_mpc_tpu_torch/envs/unitree_go2_env.py"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+        assert not (top == "triton"), f"{path} imports triton at module level"
+
+
+def test_no_torch_compile():
+    for path in SOURCES:
+        with open(path) as f:
+            assert "torch.compile" not in f.read(), path
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys, pkgutil, importlib, dial_mpc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(dial_mpc_tpu_torch.__path__, 'dial_mpc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dial_mpc_tpu', 'mujoco', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def _small_config(tmp_path):
+    from dial_mpc_tpu_torch.utils.io_utils import get_example_path
+
+    with open(get_example_path("unitree_go2_trot.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(Nsample=4, n_steps=2, Ndiffuse=1, Ndiffuse_init=1, output_dir=str(tmp_path / "out"))
+    return cfg
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    import dial_mpc_tpu_torch.envs as envs
+    from dial_mpc_tpu_torch.core import runner
+    from dial_mpc_tpu_torch.physics import engine_cuda
+
+    cfg = _small_config(tmp_path)
+    before = engine_cuda.step_core.launches
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run(cfg)  # the default device is the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        envs.get_environment("unitree_go2_walk")
+    assert not os.path.exists(cfg["output_dir"]) and engine_cuda.step_core.launches == before
+
+
+def test_runner_on_cpu_writes_the_two_artifacts(tmp_path, capsys):
+    from dial_mpc_tpu_torch.core import runner
+
+    cfg = _small_config(tmp_path)
+    summary = runner.run(cfg, progress=False, device="cpu", dtype=torch.float64)
+    states = np.load(summary["states_path"])
+    preds = np.load(summary["predictions_path"])
+    assert states.shape == (2, 1 + 19 + 18 + 12) and preds.shape == (2, 17, 13, 3)
+    assert states[:, 0].tolist() == [0.0, 1.0] and np.isfinite(states).all() and np.isfinite(preds).all()
+    assert len(summary["rews"]) == 2 and summary["latency"]["n"] == 1
+    assert sorted(os.listdir(cfg["output_dir"])) == sorted(
+        os.path.basename(summary[k]) for k in ("states_path", "predictions_path")
+    )
+    assert "viewer is not ported" in capsys.readouterr().out
+
+
+def test_runner_cli(capsys):
+    from dial_mpc_tpu_torch.core import runner
+
+    runner.main(["--list-examples"])
+    assert "unitree_go2_trot" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        runner.main([])
+
+
+def test_registry():
+    import dial_mpc_tpu_torch.envs as envs
+    from dial_mpc_tpu_torch.envs.unitree_go2_env import UnitreeGo2Env, UnitreeGo2EnvConfig
+
+    assert envs.get_env_class("unitree_go2_walk") is UnitreeGo2Env
+    assert envs.get_config("unitree_go2_walk") is UnitreeGo2EnvConfig
+    with pytest.raises(ValueError):
+        envs.get_env_class("unitree_h1_walk")
+    envs.register_env("alias_for_test", UnitreeGo2Env, UnitreeGo2EnvConfig)
+    assert isinstance(envs.get_environment("alias_for_test", device="cpu"), UnitreeGo2Env)

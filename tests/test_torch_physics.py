@@ -1,0 +1,529 @@
+"""PyTorch physics port against the JAX package, CPU MuJoCo and itself.
+
+Everything runs on the CPU at float64 (``device="cpu"``). Inputs are made
+from a seed with numpy and handed to both sides; the JAX side runs as the
+repo's own tests run it (tests/conftest.py: CPU, x64, XLA engine), with one
+jitted batched ``forward.step`` serving every comparison.
+
+Run with:  python -m pytest tests/test_torch_*.py -q
+"""
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import load_mj
+from dial_mpc_tpu.physics import engine_pallas
+from dial_mpc_tpu.physics import maths as jmaths
+from dial_mpc_tpu.physics import model as jmodel
+from dial_mpc_tpu.physics.forward import step as jax_step
+from dial_mpc_tpu.physics.kinematics import replace as jreplace
+
+from dial_mpc_tpu_torch.physics import compiled_model, engine_cuda, linalg, maths
+from dial_mpc_tpu_torch.physics.forward import forward as tforward, step as tstep
+from dial_mpc_tpu_torch.physics.model import Data, make_data, put_model
+from dial_mpc_tpu_torch.utils import convert
+from dial_mpc_tpu_torch.utils.io_utils import get_model_path
+
+GO2 = "unitree_go2/mjx_scene_force.xml"
+B = 8
+SETTLE = 5
+F64 = torch.float64
+
+
+def _random_ctrl(rng, shape, nu):
+    return rng.uniform(-8.0, 8.0, shape + (nu,))
+
+
+def _leaves(obj):
+    """A dataclass of jax arrays -> dict of numpy arrays / static values."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = _leaves(v)
+        elif isinstance(v, jax.Array):
+            out[f.name] = np.asarray(v)
+        else:
+            out[f.name] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def go2():
+    """Both models, a contact-rich batch, and the jitted JAX step."""
+    mj = load_mj(GO2)
+    mj.opt.timestep = 0.02
+    jm = jmodel.put_model(mj, dtype=jnp.float64)
+    tm = put_model(mj, device="cpu", dtype=F64)
+    rng = np.random.default_rng(0)
+    qpos = np.tile(np.asarray(mj.key_qpos[0], np.float64), (B, 1))
+    qpos += rng.normal(0, 0.01, qpos.shape)
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    qvel = rng.normal(0, 0.2, (B, mj.nv))
+
+    d0 = jmodel.make_data(jm, dtype=jnp.float64)
+    dB = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), d0)
+    dB = dataclasses.replace(dB, qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel))
+    step_b = jax.jit(jax.vmap(lambda d, c: jax_step(jm, jreplace(d, ctrl=c))))
+    for _ in range(SETTLE):
+        dB = step_b(dB, jnp.asarray(_random_ctrl(rng, (B,), mj.nu)))
+    assert bool(jnp.isfinite(dB.qpos).all())
+    ctrls = _random_ctrl(rng, (20, B), mj.nu)
+    return dict(mj=mj, jm=jm, tm=tm, step_b=step_b, dB=dB, ctrls=ctrls,
+                qpos=np.asarray(dB.qpos), qvel=np.asarray(dB.qvel))
+
+
+def _tdata(tm, qpos, qvel, ctrl):
+    t = lambda a: torch.tensor(np.asarray(a), dtype=F64)
+    return make_data(tm, qpos.shape[0]).replace(qpos=t(qpos), qvel=t(qvel), ctrl=t(ctrl))
+
+
+# ---------------------------------------------------------------------------
+# put_model, field by field
+# ---------------------------------------------------------------------------
+
+_MODEL_FIELDS = [f.name for f in dataclasses.fields(jmodel.Model) if f.name != "opt"]
+_OPT_FIELDS = [f.name for f in dataclasses.fields(jmodel.Option)]
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("name", _MODEL_FIELDS)
+def test_put_model_field(go2, name):
+    ref = convert.model_from_numpy(_leaves(go2["jm"]), dtype=F64)
+    _same(getattr(go2["tm"], name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("name", _OPT_FIELDS)
+def test_put_model_option(go2, name):
+    ref = convert.model_from_numpy(_leaves(go2["jm"]), dtype=F64)
+    _same(getattr(go2["tm"].opt, name), getattr(ref.opt, name))
+
+
+def test_put_model_go2_facts(go2):
+    tm = go2["tm"]
+    assert (tm.nq, tm.nv, tm.nu, tm.nbody, tm.nsite, tm.ngeom) == (19, 18, 12, 14, 5, 38)
+    assert [p[2:] for p in tm.pair_table] == [(0, 2, 3, c, 1) for c in range(4)]
+    assert tm.opt.cone == 0 and tm.opt.disable_eulerdamp and not tm.opt.disable_contact
+    assert (tm.opt.iterations, tm.opt.ls_iterations) == (2, 5)
+
+
+def test_compiled_scene_is_current():
+    """The shipped .npz equals a fresh MuJoCo compile of the MJCF."""
+    shipped = compiled_model.load_scene("unitree_go2", "mjx_scene_force.xml")
+    fresh = compiled_model.compile_mjcf(get_model_path("unitree_go2", "mjx_scene_force.xml"))
+    for k in compiled_model._SIZES + compiled_model._ARRAYS:
+        np.testing.assert_array_equal(np.asarray(getattr(shipped, k)), np.asarray(getattr(fresh, k)), err_msg=k)
+    for k in compiled_model._OPT:
+        np.testing.assert_array_equal(np.asarray(getattr(shipped.opt, k)), np.asarray(getattr(fresh.opt, k)), err_msg=k)
+    assert shipped.names == fresh.names and shipped.disable_bits == fresh.disable_bits
+    assert shipped.body_id("base") == 1 and shipped.site_id("FL_foot") >= 0
+    np.testing.assert_array_equal(shipped.keyframe_qpos("home"), fresh.key_qpos[0])
+
+
+def test_compiled_scene_roundtrip(tmp_path):
+    cm = compiled_model.load_scene("unitree_go2", "mjx_scene_force.xml")
+    path = str(tmp_path / "scene.npz")
+    compiled_model.save(cm, path)
+    back = compiled_model.load(path)
+    for k in compiled_model._ARRAYS:
+        np.testing.assert_array_equal(getattr(cm, k), getattr(back, k))
+    assert back.opt.timestep == cm.opt.timestep and back.names == cm.names
+    with pytest.raises(KeyError):
+        back.body_id("no_such_body")
+
+
+# ---------------------------------------------------------------------------
+# forward / step against the JAX package and CPU MuJoCo
+# ---------------------------------------------------------------------------
+
+# (field, tolerance): positions 1e-9, velocities and dynamics 1e-7
+_FORWARD_FIELDS = [
+    ("xpos", 1e-9), ("xquat", 1e-9), ("xipos", 1e-9), ("geom_xpos", 1e-9), ("site_xpos", 1e-9),
+    ("site_xmat", 1e-9), ("subtree_com", 1e-9), ("cinert", 1e-9), ("cdof", 1e-9),
+    ("cvel", 1e-7), ("cdof_dot", 1e-7), ("qM", 1e-9), ("qfrc_bias", 1e-7),
+    ("qfrc_passive", 1e-9), ("qfrc_actuator", 1e-9), ("qacc_smooth", 1e-7),
+    ("qfrc_constraint", 1e-7), ("qacc", 1e-7), ("x_pos", 1e-9), ("x_rot", 1e-9),
+    ("xd_vel", 1e-7), ("xd_ang", 1e-7),
+]
+
+
+@pytest.fixture(scope="module")
+def forward_pair(go2):
+    ctrl = go2["ctrls"][0]
+    jd = go2["step_b"](go2["dB"], jnp.asarray(ctrl))  # derived fields are pre-integration
+    td = tforward(go2["tm"], _tdata(go2["tm"], go2["qpos"], go2["qvel"], ctrl))
+    return jd, td
+
+
+@pytest.mark.parametrize("name,tol", _FORWARD_FIELDS)
+def test_forward_matches_jax(forward_pair, name, tol):
+    jd, td = forward_pair
+    np.testing.assert_allclose(getattr(td, name).numpy(), np.asarray(getattr(jd, name)), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name,tol", [("dist", 1e-9), ("pos", 1e-9), ("frame", 1e-9)])
+def test_contact_matches_jax(forward_pair, name, tol):
+    jd, td = forward_pair
+    np.testing.assert_allclose(getattr(td.contact, name).numpy(), np.asarray(getattr(jd.contact, name)), atol=tol)
+    assert (td.contact.dist < 0).any(), "the batch must be in contact"
+
+
+@pytest.mark.parametrize("name,tol", [("J", 1e-9), ("D", 1e-7), ("aref", 1e-7), ("pos", 1e-9), ("frictionloss", 0.0)])
+def test_constraint_rows_match_jax(forward_pair, name, tol):
+    jd, td = forward_pair
+    assert td.efc.J.shape == (B, 28, 18)
+    got, ref = getattr(td.efc, name).numpy(), np.asarray(getattr(jd.efc, name))
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=1e-9)
+
+
+def test_step_trajectory_matches_jax(go2):
+    """20 free-running steps from the contact-rich batch: 1e-9 qpos, 1e-7 qvel."""
+    jd = go2["dB"]
+    td = _tdata(go2["tm"], go2["qpos"], go2["qvel"], go2["ctrls"][0])
+    for k in range(20):
+        ctrl = go2["ctrls"][k]
+        jd = go2["step_b"](jd, jnp.asarray(ctrl))
+        td = tstep(go2["tm"], td.replace(ctrl=torch.tensor(ctrl)))
+        np.testing.assert_allclose(td.qpos.numpy(), np.asarray(jd.qpos), atol=1e-9, rtol=1e-9, err_msg=f"step {k}")
+        np.testing.assert_allclose(td.qvel.numpy(), np.asarray(jd.qvel), atol=1e-7, rtol=1e-7, err_msg=f"step {k}")
+    np.testing.assert_allclose(td.time.numpy(), np.asarray(jd.time) - SETTLE * 0.02, atol=1e-12)
+
+
+@pytest.mark.parametrize("sample", range(4))
+def test_forward_matches_mujoco(go2, sample):
+    """Single-state forward against CPU mj_forward (warmstart off): 1e-7."""
+    mj = load_mj(GO2)
+    mj.opt.timestep = 0.02
+    mj.opt.disableflags |= mujoco.mjtDisableBit.mjDSBL_WARMSTART
+    md = mujoco.MjData(mj)
+    md.qpos[:], md.qvel[:] = go2["qpos"][sample], go2["qvel"][sample]
+    md.ctrl[:] = go2["ctrls"][1][sample]
+    mujoco.mj_forward(mj, md)
+    tm = put_model(mj, dtype=F64)
+    td = tforward(tm, _tdata(tm, go2["qpos"][sample : sample + 1], go2["qvel"][sample : sample + 1], go2["ctrls"][1][sample : sample + 1]))
+    np.testing.assert_allclose(td.xpos[0].numpy(), md.xpos, atol=1e-9)
+    np.testing.assert_allclose(td.qfrc_bias[0].numpy(), md.qfrc_bias, atol=1e-7)
+    np.testing.assert_allclose(td.qacc_smooth[0].numpy(), md.qacc_smooth, atol=1e-7)
+    np.testing.assert_allclose(td.qacc[0].numpy(), md.qacc, atol=1e-7, rtol=1e-7)
+    M = np.zeros((mj.nv, mj.nv))
+    mujoco.mj_fullM(mj, md, M)
+    np.testing.assert_allclose(td.qM[0].numpy(), M, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plain version against the JAX kernel's own references
+# ---------------------------------------------------------------------------
+
+_OUT_TOL = {"qpos": 1e-9, "site_xpos": 1e-9, "site_xmat": 1e-9, "x_pos": 1e-9, "x_rot": 1e-9,
+            "cdist": 1e-9, "cpos": 1e-9}
+
+
+def _jax_lean_outputs(go2, ctrl, n_steps):
+    """forward.step n_steps times + engine_pallas.trim_data, as 11 arrays."""
+    jd = go2["dB"]
+    for _ in range(n_steps):
+        jd = go2["step_b"](jd, jnp.asarray(ctrl))
+    lean = jax.vmap(lambda d: engine_pallas.trim_data(go2["jm"], d))(jd)
+    r = lambda a: np.asarray(a).reshape(B, -1)
+    return [r(lean.qpos), r(lean.qvel), r(lean.site_xpos), r(lean.site_xmat), r(lean.x_pos),
+            r(lean.x_rot), r(lean.xd_vel), r(lean.xd_ang), r(lean.contact.dist),
+            r(lean.contact.pos), r(lean.qacc)]
+
+
+@pytest.mark.parametrize("n_steps", [1, 2])
+def test_step_core_reference_matches_jax(go2, n_steps):
+    ctrl = go2["ctrls"][2]
+    t = lambda a: torch.tensor(a, dtype=F64)
+    outs = engine_cuda.step_core_reference(go2["tm"], t(go2["qpos"]), t(go2["qvel"]), t(ctrl), n_steps)
+    refs = _jax_lean_outputs(go2, ctrl, n_steps)
+    assert [tuple(o.shape) for o in outs] == [(B, n) for _, n in engine_cuda.out_specs(go2["tm"])]
+    for (name, _), got, ref in zip(engine_cuda.out_specs(go2["tm"]), outs, refs):
+        tol = _OUT_TOL.get(name, 1e-7)
+        np.testing.assert_allclose(got.numpy(), ref, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_step_core_cpu_uses_plain_version_and_lean_data(go2):
+    """On CPU tensors the wrapper is the plain version and counts no launch."""
+    ctrl = go2["ctrls"][3]
+    t = lambda a: torch.tensor(a, dtype=F64)
+    before = engine_cuda.step_core.launches
+    outs = engine_cuda.step_core(go2["tm"], t(go2["qpos"]), t(go2["qvel"]), t(ctrl), 1)
+    refs = engine_cuda.step_core_reference(go2["tm"], t(go2["qpos"]), t(go2["qvel"]), t(ctrl), 1)
+    assert engine_cuda.step_core.launches == before
+    for a, b in zip(outs, refs):
+        assert torch.equal(a, b)
+    d_prev = _tdata(go2["tm"], go2["qpos"], go2["qvel"], ctrl)
+    lean = engine_cuda.lean_data(go2["tm"], d_prev, outs, t(ctrl), go2["tm"].opt.timestep)
+    full = tstep(go2["tm"], d_prev)
+    trim = engine_cuda.trim_data(go2["tm"], full)
+    for name in ("qpos", "qvel", "ctrl", "time", "site_xpos", "site_xmat", "x_pos", "x_rot", "xd_vel", "xd_ang", "qacc"):
+        assert torch.equal(getattr(lean, name), getattr(trim, name)), name
+    assert torch.equal(lean.contact.dist, trim.contact.dist) and lean.contact.frame is None
+
+
+def test_step_core_rejects_bad_inputs(go2):
+    t = lambda a: torch.tensor(a, dtype=F64)
+    q, v, c = t(go2["qpos"]), t(go2["qvel"]), t(go2["ctrls"][0])
+    with pytest.raises(ValueError):
+        engine_cuda.step_core(go2["tm"], q[:, :5], v, c)
+    with pytest.raises(ValueError):
+        engine_cuda.step_core(go2["tm"], q, v.float(), c)
+    with pytest.raises(ValueError):
+        engine_cuda.step_core(go2["tm"], q, v, c, n_steps=0)
+    with pytest.raises(ValueError):
+        engine_cuda.step_core(go2["tm"], q, v[:3], c)
+
+
+@pytest.mark.slow
+def test_step_core_reference_matches_pallas_interpret():
+    """Against the Pallas step kernel itself, in interpret mode at float64,
+    with the reduced solver schedule the JAX package's kernel tests use."""
+    mj = load_mj(GO2)
+    mj.opt.iterations = min(mj.opt.iterations, 2)
+    mj.opt.ls_iterations = min(mj.opt.ls_iterations, 4)
+    jm = jmodel.put_model(mj, dtype=jnp.float64)
+    tm = put_model(mj, dtype=F64)
+    rng = np.random.default_rng(3)
+    qpos = np.tile(np.asarray(mj.key_qpos[0], np.float64), (B, 1)) + rng.normal(0, 0.01, (B, mj.nq))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    t = lambda a: torch.tensor(a, dtype=F64)
+    d = make_data(tm, B).replace(qpos=t(qpos), qvel=t(rng.normal(0, 0.2, (B, mj.nv))))
+    for _ in range(SETTLE):
+        d = tstep(tm, d.replace(ctrl=t(_random_ctrl(rng, (B,), mj.nu))))
+    ctrl = _random_ctrl(rng, (B,), mj.nu)
+    core = engine_pallas.step_core_for(jm, block=8)
+    outs_k = jax.jit(jax.vmap(core))(jnp.asarray(d.qpos.numpy()), jnp.asarray(d.qvel.numpy()), jnp.asarray(ctrl))
+    outs_t = engine_cuda.step_core_reference(tm, d.qpos, d.qvel, t(ctrl), 1)
+    for (name, _), got, ref in zip(engine_cuda.out_specs(tm), outs_t, outs_k):
+        tol = _OUT_TOL.get(name, 1e-7)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, rtol=tol, err_msg=name)
+    jax.clear_caches()
+    engine_pallas._CORE_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's scope guard, generated header and host-compiled source
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "scene,match",
+    [
+        ("wonik_allegro/scene_left.xml", "elliptic"),
+        ("unitree_go2/mjx_scene_force_crate.xml", "collision pair"),
+        ("unitree_h1/mjx_scene_h1_walk.xml", "collision pair"),
+    ],
+)
+def test_kernel_scope_guard_raises(scene, match):
+    tm = put_model(load_mj(scene), dtype=F64)
+    with pytest.raises(NotImplementedError, match=match):
+        engine_cuda.check_supported(tm)
+    with pytest.raises(NotImplementedError):
+        engine_cuda.render_constants_header(tm)
+
+
+def test_unported_physics_branches_raise():
+    crate = put_model(load_mj("unitree_go2/mjx_scene_force_crate.xml"), dtype=F64)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tforward(crate, make_data(crate, 2))
+    allegro = put_model(load_mj("wonik_allegro/scene_left.xml"), dtype=F64)
+    with pytest.raises(NotImplementedError):
+        tstep(allegro, make_data(allegro, 2))
+
+
+def test_constants_header_and_layout(go2):
+    tm = go2["tm"]
+    lay = engine_cuda.static_layout(tm)
+    assert lay["j_sup"].shape == (28, 18) and len(lay["limit_jnt"]) == 12
+    # children-first elimination of the tree pattern has no fill-in
+    assert (lay["m_pat"] == lay["m_mask"][::-1, ::-1]).all()
+    assert (lay["h_pat"] >= lay["h_mask"][::-1, ::-1]).all()
+    assert (lay["h_mask"] >= lay["m_mask"]).all() and (lay["h_mask"] == lay["h_mask"].T).all()
+    header = engine_cuda.render_constants_header(tm)
+    for line in ("#define MC_NQ 19", "#define MC_NV 18", "#define MC_NEFC 28", "#define MC_ITERATIONS 2", "#define MC_LS_ITERATIONS 5"):
+        assert line in header
+    m32 = put_model(go2["mj"], dtype=torch.float32)
+    assert header == engine_cuda.render_constants_header(engine_cuda.exact_model(m32)), \
+        "the header holds float64 literals whatever dtype the model was put in"
+    assert engine_cuda.model_key(engine_cuda.exact_model(m32)) == engine_cuda.model_key(tm)
+    assert 1e4 < engine_cuda.step_flops(tm) < 1e6
+    assert engine_cuda.model_key(tm) == engine_cuda.model_key(put_model(go2["mj"], dtype=F64))
+
+
+_SHIM = """
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__ static const
+#define __global__
+#define __restrict__
+using std::sqrt; using std::sin; using std::cos; using std::pow; using std::fabs;
+struct dim3_ { int x; };
+static thread_local dim3_ blockIdx, blockDim, threadIdx;
+"""
+_HARNESS = """
+#include "engine_step_nolaunch.cu"
+template <typename T> static void run(const T* in, T* out, int B, int n_steps) {
+  blockDim.x = 1; threadIdx.x = 0;
+  for (int t = 0; t < B; ++t) { blockIdx.x = t; engine_step_kernel<T>(in, out, B, n_steps); }
+}
+extern "C" void run_f64(const double* in, double* out, int B, int n) { run<double>(in, out, B, n); }
+extern "C" void run_f32(const float* in, float* out, int B, int n) { run<float>(in, out, B, n); }
+extern "C" int out_rows() { return N_OUT_ROWS; }
+"""
+
+
+def _build_host_kernel(tm, d, *flags):
+    """csrc/engine_step.cu compiled as host C++ (one thread per call) into d."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    (d / "shim").mkdir()
+    (d / "shim" / "cuda_runtime.h").write_text(_SHIM)
+    (d / "model_constants.h").write_text(engine_cuda.render_constants_header(tm))
+    src = open(os.path.join(engine_cuda._CSRC, "engine_step.cu")).read()
+    (d / "engine_step_nolaunch.cu").write_text(src[: src.index("constexpr int THREADS_PER_BLOCK")])
+    (d / "harness.cpp").write_text(_HARNESS)
+    cmd = [gxx, "-O1", *flags, "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-I", str(d / "shim"),
+           "-I", str(d), "-I", engine_cuda._CSRC, "-o", str(d / "libh.so"), str(d / "harness.cpp")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if flags and "unrecognized command-line option" in r.stderr:
+        pytest.skip(f"this g++ does not know {flags}")
+    assert r.returncode == 0, r.stderr[-4000:]
+    return ctypes.CDLL(str(d / "libh.so"))
+
+
+def _run_host_kernel(lib, go2, ctrl, dtype, n_steps):
+    npdt = np.dtype(dtype)
+    inp = np.ascontiguousarray(np.concatenate([go2["qpos"], go2["qvel"], ctrl], 1).T.astype(npdt))
+    out = np.zeros((lib.out_rows(), B), npdt)
+    fn = lib.run_f64 if dtype == "float64" else lib.run_f32
+    fn(inp.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), B, n_steps)
+    return out
+
+
+@pytest.fixture(scope="module")
+def host_kernel(go2, tmp_path_factory):
+    """The kernel's arithmetic, checked here where there is no nvcc and no card."""
+    return _build_host_kernel(go2["tm"], tmp_path_factory.mktemp("host_kernel"))
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_source_on_host_matches_plain_version(go2, host_kernel, dtype, n_steps):
+    tm, ctrl = go2["tm"], go2["ctrls"][4]
+    t = lambda a: torch.tensor(a, dtype=F64)
+    refs = engine_cuda.step_core_reference(tm, t(go2["qpos"]), t(go2["qvel"]), t(ctrl), n_steps)
+    out = _run_host_kernel(host_kernel, go2, ctrl, dtype, n_steps)
+    assert out.shape[0] == sum(n for _, n in engine_cuda.out_specs(tm))
+    o = 0
+    for (name, n), ref in zip(engine_cuda.out_specs(tm), refs):
+        got = out[o : o + n].T
+        o += n
+        if dtype == "float64":
+            tol = _OUT_TOL.get(name, 1e-7)
+        else:  # float32 arithmetic against the float64 plain version
+            tol = {"qacc": 5e-2, "qvel": 1e-3, "xd_vel": 1e-3, "xd_ang": 1e-3}.get(name, 1e-4)
+        np.testing.assert_allclose(got, ref.numpy(), atol=tol, rtol=tol, err_msg=f"{name} {dtype}")
+
+
+@pytest.fixture(scope="module")
+def host_kernel_prefilled(go2, tmp_path_factory):
+    """Host builds with every local variable pre-filled: zeros, a bit pattern."""
+    return [
+        _build_host_kernel(go2["tm"], tmp_path_factory.mktemp(fill), f"-ftrivial-auto-var-init={fill}")
+        for fill in ("zero", "pattern")
+    ]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_source_reads_no_uninitialised_value(go2, host_kernel, host_kernel_prefilled, dtype):
+    """The kernel never writes the entries of M, H, L and J that lie outside
+    the static patterns, so it must never read them either: whatever the
+    local variables held before, the outputs are the same bit for bit."""
+    plain = _run_host_kernel(host_kernel, go2, go2["ctrls"][5], dtype, 3)
+    for lib in host_kernel_prefilled:
+        np.testing.assert_array_equal(_run_host_kernel(lib, go2, go2["ctrls"][5], dtype, 3), plain)
+
+
+# ---------------------------------------------------------------------------
+# small pieces
+# ---------------------------------------------------------------------------
+
+# (function, kinds of its arguments): q unit quaternion, v 3-vector, s 6-vector,
+# d Euler angles in degrees, m mass, I symmetric 3x3
+_MATHS = [
+    ("quat_mul", "qq"), ("quat_inv", "q"), ("normalize", "v"), ("rotate", "vq"),
+    ("inv_rotate", "vq"), ("quat_to_mat", "q"), ("quat_to_euler", "q"), ("euler_to_quat", "d"),
+    ("motion_cross", "ss"), ("force_cross", "ss"), ("skew", "v"), ("spatial_inertia", "mIv"),
+]
+
+
+@pytest.mark.parametrize("name,kinds", _MATHS)
+def test_maths_matches_jax(name, kinds):
+    """Each batched helper against its single-sample JAX counterpart: 1e-12."""
+    rng = np.random.default_rng(11)
+    make = {
+        "q": lambda: (lambda q: q / np.linalg.norm(q, axis=1, keepdims=True))(rng.normal(size=(B, 4))),
+        "v": lambda: rng.normal(size=(B, 3)), "s": lambda: rng.normal(size=(B, 6)),
+        "d": lambda: rng.uniform(-170, 170, (B, 3)), "m": lambda: rng.uniform(0.1, 5, B),
+        "I": lambda: (lambda a: a + a.transpose(0, 2, 1))(rng.normal(size=(B, 3, 3))),
+    }
+    args = [make[k]() for k in kinds]
+    got = getattr(maths, name)(*[torch.tensor(a) for a in args])
+    ref = jax.vmap(getattr(jmaths, name))(*[jnp.asarray(a) for a in args])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-12, rtol=1e-12)
+
+
+def test_quat_integrate_matches_jax_and_takes_zero_velocity():
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w = rng.normal(size=(B, 3))
+    w[0] = 0.0  # the axis is undefined at zero angular velocity; the result must be q
+    got = maths.quat_integrate(torch.tensor(q), torch.tensor(w), 0.02)
+    ref = jax.vmap(lambda a, b: jmaths.quat_integrate(a, b, 0.02))(jnp.asarray(q), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-12)
+    np.testing.assert_allclose(got[0].numpy(), q[0], atol=1e-15)
+
+
+def test_cholesky_matches_lapack_and_clamps():
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(6, 9, 9))
+    A = torch.tensor(A @ A.transpose(0, 2, 1) + 9 * np.eye(9))
+    b = torch.tensor(rng.normal(size=(6, 9)))
+    np.testing.assert_allclose(linalg.cholesky(A).numpy(), torch.linalg.cholesky(A).numpy(), atol=1e-12)
+    np.testing.assert_allclose(linalg.solve_pd(A, b).numpy(), torch.linalg.solve(A, b).numpy(), atol=1e-12)
+    singular = torch.zeros(1, 3, 3, dtype=F64)
+    assert torch.isfinite(linalg.cholesky(singular)).all()
+
+
+def test_data_from_numpy_roundtrip(go2):
+    jd = go2["step_b"](go2["dB"], jnp.asarray(go2["ctrls"][0]))
+    lean = jax.vmap(lambda d: engine_pallas.trim_data(go2["jm"], d))(jd)
+    leaves = _leaves(lean)
+    for k in ("geom", "includemargin", "friction", "solref", "solimp", "dim"):
+        leaves["contact"][k] = leaves["contact"][k][0]  # static rows carry no batch axis here
+    td = convert.data_from_numpy(leaves, dtype=F64)
+    assert isinstance(td, Data) and td.qpos.shape == (B, 19) and td.contact.pos.shape == (B, 4, 3)
+    np.testing.assert_array_equal(td.x_pos.numpy(), np.asarray(lean.x_pos))
+    assert td.contact.geom.dtype == torch.int32 and td.xpos is None
