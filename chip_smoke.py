@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N] [--compare-only]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
-  2. build of the step kernel's library from dial_mpc_tpu_torch/csrc;
-  3. the kernel against its plain PyTorch version on the card: Go2 flat
-     scene, a contact-rich batch, B = 2049 and B = 1, float64 and float32,
-     and n_steps = 4 against four sequential launches; then the whole
-     planner on a small input, card against CPU;
-  4. the main path: the synchronous Go2 trot solve through
-     dial_mpc_tpu_torch.core.runner.run at the shipped width (Nsample 2048,
-     Hsample 16, Hnode 4, Ndiffuse 2, Ndiffuse_init 10), float32, with the
-     number of control steps cut to --steps, and the launch count checked;
-  5. the kernel's times beside its bound.
-The last line is {"ok": true, "device": {...}}.
+  2. build of every kernel's library from dial_mpc_tpu_torch/csrc, all nvcc
+     runs started together: the step kernel, and the solver kernel for the
+     Go2 flat scene's key and for a synthetic key with elliptic groups;
+  3. each kernel against its plain PyTorch version on the card:
+     - the step kernel: Go2 flat scene, a contact-rich batch, B = 2049 and
+       B = 1, float64 and float32, and n_steps = 4 against four sequential
+       launches;
+     - the solver kernel: the constraint rows of the same batch (at-limit
+       states included and counted), B = 2049 and B = 1, float64 and float32,
+       and the synthetic problem of tools/solver_cases.py, which puts rows in
+       every branch (friction loss on both sides of its clamp, elliptic
+       groups of dimension 3 and 6 in every zone, counted);
+     - the fused route (step kernel) against the unfused one (plain stages
+       with the solver kernel) on the same states, float64;
+     - the whole planner on a small input, card against CPU;
+  4. the paths, each through dial_mpc_tpu_torch.core.runner.run at the
+     shipped width, float32, with the number of control steps cut and the
+     launch counts checked: Go2 trot on the fused route (--steps), Go2 trot
+     on the unfused route (--unfused-steps), Go2 seq-jump on the fused route
+     (--jump-steps);
+  5. the kernels' times beside their bounds.
+The last line is {"ok": true, "device": {...}}. With --compare-only the
+script stops after phase 3 and prints no such line.
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -35,8 +48,11 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
 from dial_mpc_tpu_torch.core import runner
-from dial_mpc_tpu_torch.physics import engine_cuda, make_data, put_model, step
+from dial_mpc_tpu_torch.physics import (
+    cuda_build, engine_cuda, forward, make_data, put_model, solver, solver_cuda, step,
+)
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
+from dial_mpc_tpu_torch.tools import solver_cases
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path
 
 DEVICE = "cuda"
@@ -55,6 +71,19 @@ TOL_F64_DEFAULT = 1e-7
 # that, qpos to timestep times qvel's; pre-step products to a few ulps.
 TOL_F32 = {"qacc": 0.5, "qvel": 1e-2, "qpos": 2e-4, "xd_vel": 1e-4, "xd_ang": 1e-4}
 TOL_F32_DEFAULT = 1e-5
+# The solver kernel, float64: the same arithmetic in another order (the
+# kernel carries jar and M dx from iteration to iteration, the plain version
+# recomputes them); E's own qacc tolerance.
+TOL_SOLVER_F64 = 1e-7
+# The solver kernel, float32 against the float64 plain version on the same
+# (float32-rounded) rows: x is qacc, so E's qacc tolerance and its reason hold
+# (accelerations of 1e3..1e4, rounding amplified by the Hessian's
+# conditioning); qfrc = J' f is held to the same absolute 0.5 (forces of the
+# same batch reach 1e2..1e3).
+TOL_SOLVER_F32 = 0.5
+# The synthetic problem is O(1)..O(10) and well conditioned (M = A A' + 6 I):
+# errors relative to max(1, |reference|max).
+TOL_SYNTHETIC = {"float64": 1e-9, "float32": 1e-3}
 
 
 def emit(phase, **kw):
@@ -83,7 +112,7 @@ def contact_rich_batch(mj, model, batch, seed=0, settle=5):
 
     d = make_data(model, batch).replace(qpos=t(qpos), qvel=t(rng.normal(0, 0.2, (batch, mj.nv))))
     for _ in range(settle):
-        d = step(model, d.replace(ctrl=t(rng.uniform(-8.0, 8.0, (batch, mj.nu)))))
+        d = step(model, d.replace(ctrl=t(rng.uniform(-8.0, 8.0, (batch, mj.nu)))), solver.solve_reference)
     require(bool(torch.isfinite(d.qpos).all()), "settle rollout diverged")
     return d.qpos.contiguous(), d.qvel.contiguous(), t(rng.uniform(-8.0, 8.0, (batch, mj.nu)))
 
@@ -208,11 +237,155 @@ def phase_compare(mj):
     flops = engine_cuda.step_flops(m32) * B_FULL
     bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
     ops_ms = flops / H100_FP32_FLOPS * 1e3
-    return dict(
+    timing = dict(
         max_abs_err=errs["f32_B2049"], wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, bytes=nbytes, flops=flops,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
+    states = dict(settled=(qpos, qvel, ctrl), at_limits=(ql, vl, ctrl), n_limit=n_limit)
+    return timing, m64, m32, states
+
+
+def solver_rows(model, qpos, qvel, ctrl):
+    """The solver's inputs at these states, and the plain solve's outputs, all
+    from the plain physics (no kernel anywhere in the chain)."""
+    d = make_data(model, qpos.shape[0]).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+    d = forward(model, d, solver.solve_reference)
+    e = d.efc
+    args = tuple(a.contiguous() for a in (e.J, e.D, e.aref, e.frictionloss, e.eta, d.qM, d.qacc_smooth))
+    return args, (d.qacc, d.qfrc_constraint)
+
+
+def solver_errors(outs, refs, tol, what, relative=False):
+    worst = {}
+    for name, a, b in zip(("x", "qfrc"), outs, refs):
+        err = float((a.double() - b.double()).abs().max())
+        if relative:
+            err /= max(1.0, float(b.abs().max()))
+        worst[name] = err
+        if not (err <= tol):  # also catches NaN
+            raise AssertionError(f"solver kernel, {what}: {name} differs by {err:.3e} > {tol:.1e}")
+    return worst
+
+
+def phase_solver_compare(m64, m32, states):
+    """Phase 3, kernel S; returns what phase 5 needs."""
+    errs, counts = {}, {}
+    n_rows_limit = len(engine_cuda.static_layout(m64)["limit_jnt"])
+
+    # ---- Go2 rows: settled (contact-rich) and at-limit states ----
+    for name, (qpos, qvel, ctrl) in (("settled", states["settled"]), ("at_limits", states["at_limits"])):
+        args, refs = solver_rows(m64, qpos, qvel, ctrl)
+        D = args[1]
+        counts[name] = dict(
+            samples_with_active_limit_row=int((D[:, :n_rows_limit] > 0).any(-1).sum()),
+            samples_with_active_contact_row=int((D[:, n_rows_limit:] > 0).any(-1).sum()),
+        )
+        outs = solver_cuda.solve_batched(m64, *args)
+        torch.cuda.synchronize()
+        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, TOL_SOLVER_F64, f"f64 {name}")
+        one = solver_cuda.solve_batched(m64, *[a[:1] for a in args])
+        torch.cuda.synchronize()
+        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], TOL_SOLVER_F64, f"f64 B=1 {name}")
+        args32 = tuple(a.float() for a in args)
+        refs32 = solver_cuda.solve_batched_reference(m64, *[a.double() for a in args32])
+        outs32 = solver_cuda.solve_batched(m32, *args32)
+        torch.cuda.synchronize()
+        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, TOL_SOLVER_F32, f"f32 {name}")
+        one32 = solver_cuda.solve_batched(m32, *[a[:1] for a in args32])
+        torch.cuda.synchronize()
+        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], TOL_SOLVER_F32, f"f32 B=1 {name}")
+        if name == "settled":
+            timing_args, timing_args32 = args, args32
+    require(counts["at_limits"]["samples_with_active_limit_row"] > 0, "no sample has an active joint-limit row")
+    require(counts["settled"]["samples_with_active_contact_row"] > 0, "no sample is in contact")
+
+    # ---- the synthetic problem: every row kind, every zone ----
+    rows = solver_cases.synthetic_problem(seed=0, batch=B_FULL)
+    zones = {}
+    for gi, (row0, dim) in enumerate(solver_cases.SPEC["groups"]):
+        for zname, z in (("inactive", -1), ("top", solver_cases.TOP), ("middle", solver_cases.MIDDLE),
+                         ("bottom", solver_cases.BOTTOM)):
+            zones[f"dim{dim}_{zname}"] = int((rows["zone0"][:, gi] == z).sum())
+    zones["frictionloss_within_clamp"] = int((~rows["clamped0"]).sum())
+    zones["frictionloss_beyond_clamp"] = int(rows["clamped0"].sum())
+    require(min(zones.values()) > 0, f"the synthetic problem misses a branch: {zones}")
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        ms = solver_cases.synthetic_model(DEVICE, dtype)
+        a = [torch.tensor(rows[k], dtype=dtype, device=DEVICE) for k in ("J", "D", "aref", "fl", "eta", "M", "qs")]
+        ref = solver_cuda.solve_batched_reference(
+            solver_cases.synthetic_model(DEVICE, torch.float64), *[t.double() for t in a]
+        )
+        out = solver_cuda.solve_batched(ms, *a)
+        torch.cuda.synchronize()
+        errs[f"synthetic_{name}_B2049"] = solver_errors(out, ref, TOL_SYNTHETIC[name], f"synthetic {name}", relative=True)
+        one = solver_cuda.solve_batched(ms, *[t[:1] for t in a])
+        torch.cuda.synchronize()
+        errs[f"synthetic_{name}_B1"] = solver_errors(
+            one, [r[:1] for r in ref], TOL_SYNTHETIC[name], f"synthetic {name} B=1", relative=True
+        )
+
+    emit(
+        "solver_compare", ok=True, go2_rows=counts, synthetic_samples=zones,
+        tolerance={"f64": TOL_SOLVER_F64, "f32": TOL_SOLVER_F32, "synthetic_relative": TOL_SYNTHETIC},
+        max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
+    )
+
+    # ---- timings at the unfused path's shape: Go2 rows, B = 2049, float32 ----
+    key = solver_cuda.solver_key(m32, timing_args32[0].shape[1])
+    lib = solver_cuda.load_library(key)
+    for _ in range(5):
+        solver_cuda.solve_batched(m32, *timing_args32)
+    torch.cuda.synchronize()
+    wrapper_ms = cuda_ms(lambda: solver_cuda.solve_batched(m32, *timing_args32), 100)
+    packed_in = solver_cuda.pack_inputs(*timing_args32)
+    packed_out = torch.empty((lib.out_rows, B_FULL), dtype=torch.float32, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = lib.fn(torch.float32)
+
+    def raw():
+        err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B_FULL, stream)
+        require(err == 0, f"launch failed with cudaError {err}")
+
+    kernel_ms = cuda_ms(raw, 100)
+    solver_cuda.solve_batched_reference(m32, *timing_args32)
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: solver_cuda.solve_batched_reference(m32, *timing_args32), 5)
+    b1_ms = cuda_ms(lambda: solver_cuda.solve_batched(m32, *[a[:1] for a in timing_args32]), 100)
+    wrapper64_ms = cuda_ms(lambda: solver_cuda.solve_batched(m64, *timing_args), 50)
+    packed64 = solver_cuda.pack_inputs(*timing_args)
+    out64 = torch.empty((lib.out_rows, B_FULL), dtype=torch.float64, device=DEVICE)
+    fn64 = lib.fn(torch.float64)
+    kernel64_ms = cuda_ms(lambda: fn64(packed64.data_ptr(), out64.data_ptr(), B_FULL, stream), 50)
+
+    # each dense operand once in, each result once out
+    nbytes = (lib.in_rows + lib.out_rows) * B_FULL * 4
+    flops = solver_cuda.solve_flops(key) * B_FULL
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    return dict(
+        max_abs_err=errs["f32_B2049_settled"], wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
+        plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, kernel64_ms=kernel64_ms,
+        bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def phase_fused_vs_unfused(m64, states):
+    """The same states and controls through the step kernel and through the
+    plain stages with the solver kernel, float64, inside phase 3's tolerances."""
+    errs = {}
+    before = solver_cuda.solve_batched.launches
+    for name in ("settled", "at_limits"):
+        qpos, qvel, ctrl = states[name]
+        fused = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
+        unfused = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1, solver.solve)
+        torch.cuda.synchronize()
+        errs[name] = compare(m64, fused, unfused, TOL_F64, TOL_F64_DEFAULT, f"fused vs unfused, {name}")
+    require(solver_cuda.solve_batched.launches == before + 2, "the unfused step did not launch the solver kernel")
+    emit("fused_vs_unfused", ok=True, samples_at_joint_limit=states["n_limit"],
+         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs)
 
 
 def phase_small_input():
@@ -251,23 +424,43 @@ def phase_small_input():
          max_abs_err_card_vs_cpu=err, tolerance=1e-8)
 
 
-def phase_main_path(n_steps):
-    with open(get_example_path("unitree_go2_trot.yaml")) as f:
+WIDTHS = {
+    "unitree_go2_trot": dict(Nsample=2048, Hsample=16, Hnode=4, Ndiffuse=2, Ndiffuse_init=10),
+    "unitree_go2_seq_jump": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=2, Ndiffuse_init=10),
+}
+
+
+def phase_path(example, engine, n_steps, same_as=None):
+    """One path through runner.run at the shipped width, float32. Both launch
+    counts are set to 0 just before and read just after. The route's kernel
+    must have been launched once per env step; besides, env.reset runs the
+    plain forward once on either route, and its solve stage is one launch of
+    the solver kernel. ``same_as`` is the qpos trajectory of another route's
+    run of the same example and seed, which this run must follow."""
+    with open(get_example_path(example + ".yaml")) as f:
         cfg = yaml.safe_load(f)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     cfg.update(n_steps=n_steps, output_dir=out_dir)
-    width = {k: cfg[k] for k in ("Nsample", "Hsample", "Hnode", "Ndiffuse", "Ndiffuse_init")}
-    require(width == dict(Nsample=2048, Hsample=16, Hnode=4, Ndiffuse=2, Ndiffuse_init=10), width)
+    width = {k: cfg[k] for k in WIDTHS[example]}
+    require(width == WIDTHS[example], width)
+    require(cfg["dt"] == cfg["timestep"], "the shipped configs run one physics step per env step")
 
     engine_cuda.step_core.launches = 0
+    solver_cuda.solve_batched.launches = 0
     t0 = time.time()
-    summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32)
+    summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32, engine=engine)
     wall = time.time() - t0
-    launches = engine_cuda.step_core.launches
+    launches = {"engine_step": engine_cuda.step_core.launches,
+                "solver_newton": solver_cuda.solve_batched.launches}
 
+    # env steps: one advance per control step, Hsample + 1 per annealing level
     per_level = cfg["Hsample"] + 1
     expected = n_steps + per_level * (cfg["Ndiffuse_init"] + cfg["Ndiffuse"] * (n_steps - 1))
-    require(launches == expected, f"step kernel launches {launches} != {expected}")
+    if engine == "fused":
+        mine, want = "engine_step", {"engine_step": expected, "solver_newton": 1}
+    else:
+        mine, want = "solver_newton", {"engine_step": 0, "solver_newton": expected + 1}
+    require(launches == want, f"{example}/{engine}: launches {launches} != {want}")
 
     states = np.load(summary["states_path"])
     shutil.rmtree(out_dir)
@@ -276,24 +469,75 @@ def phase_main_path(n_steps):
     require(np.isfinite(states).all(), "non-finite state")
     require(np.isfinite(summary["rews"]).all(), "non-finite reward")
     require(np.isfinite(summary["rews_plan"]).all(), "non-finite planned reward")
-    require(qpos[:, 2].min() > 0.18, f"base fell to {qpos[:, 2].min():.3f} m")
-    advance = float(qpos[-1, 0] - qpos[0, 0])
-    require(advance > (0.05 if n_steps >= 50 else 0.0), f"base x advanced only {advance:.3f} m")
+    extra = {}
+    if example == "unitree_go2_trot":  # still walking
+        require(qpos[:, 2].min() > 0.18, f"base fell to {qpos[:, 2].min():.3f} m")
+        advance = float(qpos[-1, 0] - qpos[0, 0])
+        if n_steps >= 50:
+            require(advance > 0.05, f"base x advanced only {advance:.3f} m")
+        if same_as is not None:
+            # Same seed, same draws, the same arithmetic up to float32 rounding
+            # (which the softmax over rewards amplifies): a run too short to
+            # show the walk must retrace the other route's first steps. 0.02
+            # (rad, m) is far below what a different plan would give.
+            n = min(n_steps, same_as.shape[0])
+            extra["max_qpos_diff_to_other_route"] = float(np.abs(qpos[:n] - same_as[:n]).max())
+            require(extra["max_qpos_diff_to_other_route"] <= 0.02,
+                    f"the routes part by {extra['max_qpos_diff_to_other_route']:.3e}")
+    else:  # seq-jump: alive, and the stage clock advances every jump_dt / dt steps
+        require(qpos[:, 2].min() > 0.1, f"base fell to {qpos[:, 2].min():.3f} m")
+        info = summary["state"].info
+        stage, step = int(info["contact_stage"][0]), int(info["step"][0])
+        n_stage = info["pose_target_sequence"].shape[1]
+        require(step == n_steps, f"env step count {step} != {n_steps}")
+        require(stage == min(int(n_steps * cfg["dt"] / cfg["jump_dt"]), n_stage - 1), f"contact_stage {stage}")
+        require(stage >= 1 or n_steps * cfg["dt"] < cfg["jump_dt"], "contact_stage did not advance")
+        extra = dict(contact_stage=stage, done=float(summary["state"].done[0]))
     step_ms = sorted(1e3 / f for f in summary["freqs"][1:])
     emit(
-        "main_path", ok=True, n_steps=n_steps, **width, dtype="float32", launches=launches,
-        launches_expected=expected, launches_first_step=1 + per_level * cfg["Ndiffuse_init"],
+        "path", ok=True, example=example, engine=engine, n_steps=n_steps, **width, dtype="float32",
+        launches=launches, launches_expected=want, env_steps=expected,
+        launches_first_step=1 + per_level * cfg["Ndiffuse_init"],
         launches_per_step=1 + per_level * cfg["Ndiffuse"],
         first_step_ms=1e3 / summary["freqs"][0], control_step_ms_median=step_ms[len(step_ms) // 2],
         control_step_ms_p90=step_ms[int(len(step_ms) * 0.9)], mean_reward=summary["mean_reward"],
-        base_x_final=float(qpos[-1, 0]), base_z_min=float(qpos[:, 2].min()), wall_s=wall,
+        base_x_final=float(qpos[-1, 0]), base_z_min=float(qpos[:, 2].min()), wall_s=wall, **extra,
     )
-    return launches, step_ms[len(step_ms) // 2]
+    return launches[mine], step_ms[len(step_ms) // 2], qpos
+
+
+def build_all(mj):
+    """Phase 2: every library of the paths below, all nvcc runs started together."""
+    m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
+    nefc = engine_cuda.static_layout(m32)["j_sup"].shape[0]
+    jobs = {
+        "engine_step": lambda: engine_cuda.load_library(m32),
+        "solver_newton[go2]": lambda: solver_cuda.load_library(solver_cuda.solver_key(m32, nefc)),
+        "solver_newton[synthetic]": lambda: solver_cuda.load_library(
+            solver_cuda.solver_key(solver_cases.synthetic_model(DEVICE), solver_cases.SPEC["nefc"])
+        ),
+    }
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    emit(
+        "build", ok=True, seconds=time.time() - t0,
+        libraries={
+            name: dict(seconds=lib.build_seconds, library=os.path.relpath(lib.path),
+                       ptxas=cuda_build.ptxas_summary(lib.build_log))
+            for name, lib in libs.items()
+        },
+    )
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=50, help="control steps of the main path")
+    ap.add_argument("--steps", type=int, default=50, help="control steps of Go2 trot, fused route")
+    ap.add_argument("--unfused-steps", type=int, default=3, help="control steps of Go2 trot, unfused route")
+    ap.add_argument("--jump-steps", type=int, default=55, help="control steps of Go2 seq-jump, fused route")
+    ap.add_argument("--compare-only", action="store_true",
+                    help="build and compare the kernels, then stop (a short run after a kernel edit)")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -308,37 +552,44 @@ def main():
 
     mj = load_scene("unitree_go2", "mjx_scene_force.xml")
     mj.opt.timestep = 0.02
-    lib = engine_cuda.load_library(put_model(mj, device=DEVICE, dtype=torch.float32))
-    emit(
-        "build", ok=True, seconds=lib.build_seconds, library=os.path.relpath(lib.path),
-        ptxas=[l.strip() for l in lib.build_log.splitlines() if "spill" in l or "registers" in l],
-    )
+    build_all(mj)
 
-    timing = phase_compare(mj)
+    timing_e, m64, m32, states = phase_compare(mj)
+    timing_s = phase_solver_compare(m64, m32, states)
+    phase_fused_vs_unfused(m64, states)
     phase_small_input()
-    launches, step_ms = phase_main_path(args.steps)
+    if args.compare_only:
+        emit("done", seconds=time.time() - t_start, compare_only=True)
+        return
+    launches_e, step_ms_fused, qpos_fused = phase_path("unitree_go2_trot", "fused", args.steps)
+    launches_s, step_ms_unfused, _ = phase_path(
+        "unitree_go2_trot", "unfused", args.unfused_steps, same_as=qpos_fused
+    )
+    launches_jump, step_ms_jump, _ = phase_path("unitree_go2_seq_jump", "fused", args.jump_steps)
+
+    def kernel_line(name, source, replaces, launches, t, **more):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": f"B={B_FULL},f32", "launches": launches,
+            "max_abs_err": max(t["max_abs_err"].values()), "ms": t["wrapper_ms"],
+            "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "b1_ms": t["b1_ms"],
+            "f64_ms": t["wrapper64_ms"], "bytes": t["bytes"], "flops": t["flops"], **more,
+        }
 
     kernels = [
-        {
-            "name": "engine_step",
-            "route": "cuda",
-            "source": "dial_mpc_tpu_torch/csrc/engine_step.cu",
-            "replaces": "dial_mpc_tpu/physics/engine_pallas.py:1341",
-            "shape": f"B={B_FULL},f32",
-            "launches": launches,
-            "max_abs_err": max(timing["max_abs_err"].values()),
-            "ms": timing["wrapper_ms"],
-            "kernel_ms": timing["kernel_ms"],
-            "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
-            "library_ms": None,
-            "b1_ms": timing["b1_ms"],
-            "f64_ms": timing["wrapper64_ms"],
-            "bytes": timing["bytes"],
-            "flops": timing["flops"],
-            "control_step_ms_median": step_ms,
-        }
+        kernel_line(
+            "engine_step", "dial_mpc_tpu_torch/csrc/engine_step.cu",
+            "dial_mpc_tpu/physics/engine_pallas.py:1341", launches_e, timing_e,
+            path="unitree_go2_trot, fused route", control_step_ms_median=step_ms_fused,
+            launches_seq_jump=launches_jump, control_step_ms_median_seq_jump=step_ms_jump,
+        ),
+        kernel_line(
+            "solver_newton", "dial_mpc_tpu_torch/csrc/solver_newton.cu",
+            "dial_mpc_tpu/physics/solver_pallas.py:430", launches_s, timing_s,
+            path="unitree_go2_trot, unfused route", control_step_ms_median=step_ms_unfused,
+            f64_kernel_ms=timing_s["kernel64_ms"],
+        ),
     ]
     emit("done", seconds=time.time() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

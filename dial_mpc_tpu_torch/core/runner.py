@@ -3,7 +3,7 @@
 Load a flat YAML into DialConfig + env config, build the env and planner,
 run n_steps of receding-horizon control, dump artifacts:
 
-    python -m dial_mpc_tpu_torch.core.runner --example unitree_go2_trot
+    python -m dial_mpc_tpu_torch.core.runner --example unitree_go2_trot [--engine unfused]
 
 Each control step (MBDPI.control_step) only enqueues work on the device;
 the host loop then reads ONE packed tensor back per step for telemetry. The
@@ -25,7 +25,7 @@ import yaml
 import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
-from dial_mpc_tpu_torch.envs.base_env import require_device
+from dial_mpc_tpu_torch.envs.base_env import ENGINES, require_device
 from dial_mpc_tpu_torch.examples import examples
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
 from dial_mpc_tpu_torch.utils.telemetry import LatencyRecorder
@@ -47,8 +47,12 @@ def pack_telemetry(state, u_exec, info) -> torch.Tensor:
     )
 
 
-def run(config_dict, progress=True, device="cuda", dtype=torch.float32):
-    """Run the sync receding-horizon loop; returns a summary dict."""
+def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="fused"):
+    """Run the sync receding-horizon loop; returns a summary dict.
+
+    ``engine`` is the env's physics route: ``"fused"`` (the whole-step
+    kernel) or ``"unfused"`` (stage by stage, the solve on its own kernel).
+    """
     device = require_device(device)
     dial_config = load_dataclass_from_dict(DialConfig, config_dict)
     generator = torch.Generator(device=device).manual_seed(dial_config.seed)
@@ -57,7 +61,9 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32):
     env_config = load_dataclass_from_dict(
         env_config_type, config_dict, convert_list_to_array=True, device=device, dtype=dtype
     )
-    env = dial_envs.get_environment(dial_config.env_name, env_config, device=device, dtype=dtype)
+    env = dial_envs.get_environment(
+        dial_config.env_name, env_config, device=device, dtype=dtype, engine=engine
+    )
     mbdpi = MBDPI(dial_config, env, generator)
 
     state = env.reset(generator)
@@ -134,6 +140,7 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32):
         "latency": latency.summary(),
         "states_path": states_path,
         "predictions_path": predictions_path,
+        "state": state,  # the last env State (on the run's device)
     }
 
 
@@ -149,6 +156,10 @@ def main(argv=None):
     )
     parser.add_argument(
         "--device", type=str, default="cuda", help="cuda (default) or cpu; there is no fallback"
+    )
+    parser.add_argument(
+        "--engine", type=str, default="fused", choices=ENGINES,
+        help="fused: the whole-step kernel; unfused: stage by stage with the solver kernel",
     )
     args = parser.parse_args(argv)
 
@@ -169,7 +180,7 @@ def main(argv=None):
     with open(config_path) as f:
         config_dict = yaml.safe_load(f)
 
-    run(config_dict, device=args.device)
+    run(config_dict, device=args.device, engine=args.engine)
 
 
 if __name__ == "__main__":

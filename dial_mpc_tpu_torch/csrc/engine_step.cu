@@ -34,17 +34,11 @@
 
 #include "lane_math.cuh"
 #include "model_consts.cuh"
+#include "newton_solve.cuh"
 
 using namespace mc;
 
 #define MJ_MINVAL 1e-15
-
-// Loops over constraint rows stay loops. Fully unrolled, nvcc 12.9 keeps the
-// per-row arrays (D, aref, jar) in registers and then drops the first
-// joint-limit row from the solve: jar[0] comes out NaN on the card, while the
-// same source compiled for the host is right. `unroll 1` avoids that and
-// also halves the register spills.
-#define ROW_LOOP _Pragma("unroll 1")
 
 // ---------------------------------------------------------------------------
 // soft-constraint impedance and reference acceleration
@@ -91,196 +85,24 @@ __device__ __forceinline__ void make_frame(T* frame, const T* n) {
 }
 
 // ---------------------------------------------------------------------------
-// Masked Cholesky solve H x = g, children first.
-//
-// The factorisation runs on P H P^T with P the reversal of the dof order, so
-// that a tree-structured pattern factorises without fill-in; `pat` is the
-// pattern of the factor in that order (fill included), `mask` the pattern of
-// H itself in dof order. Entries outside the patterns are never read.
-// Pivots are clamped at 1e-12.
+// The in-kernel Newton solve (newton_solve.cuh) on this model's static
+// sparsity: unilateral rows only, patterns read from constant memory.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __noinline__ void chol_solve(const T (*H)[NV], const unsigned char (*mask)[NV],
-                                        const unsigned char (*pat)[NV], const T* g, T* x,
-                                        T (*L)[NV]) {
-  for (int j = 0; j < NV; ++j) {
-    const int pj = NV - 1 - j;
-    T s = H[pj][pj];
-    for (int k = 0; k < j; ++k)
-      if (pat[j][k]) s = s - L[j][k] * L[j][k];
-    T d = sqrt(tmax(s, T(1e-12)));
-    L[j][j] = d;
-    T inv = T(1) / d;
-    for (int i = j + 1; i < NV; ++i) {
-      if (!pat[i][j]) continue;
-      const int pi = NV - 1 - i;
-      s = mask[pi][pj] ? H[pi][pj] : T(0);
-      for (int k = 0; k < j; ++k)
-        if (pat[i][k] && pat[j][k]) s = s - L[i][k] * L[j][k];
-      L[i][j] = s * inv;
-    }
+struct EnginePolicy {
+  static constexpr int NV = mc::NV, NEFC = mc::NEFC;
+  static constexpr int ITERATIONS = mc::ITERATIONS, LS_ITERATIONS = mc::LS_ITERATIONS;
+  static constexpr int NGROUPS = 0;
+  static constexpr bool FRICTION_ROWS = false;
+  static __device__ __forceinline__ bool j_sup(int r, int i) { return g_topo.j_sup[r][i]; }
+  static __device__ __forceinline__ bool m_mask(int i, int j) { return g_topo.m_mask[i][j]; }
+  static __device__ __forceinline__ bool h_mask(int i, int j) { return g_topo.h_mask[i][j]; }
+  template <typename T>
+  static __device__ __forceinline__ void solve_hessian(const T (*H)[NV], const T* g, T* x,
+                                                       T (*L)[NV]) {
+    chol_solve<T, NV, false>(H, g_topo.h_mask, g_topo.h_pat, g, x, L);
   }
-  T y[NV];
-  for (int i = 0; i < NV; ++i) {
-    T s = g[NV - 1 - i];
-    for (int k = 0; k < i; ++k)
-      if (pat[i][k]) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = NV - 1; i >= 0; --i) {
-    T s = y[i];
-    for (int k = i + 1; k < NV; ++k)
-      if (pat[k][i]) s = s - L[k][i] * y[k];  // y[k] already holds the solution for k > i
-    y[i] = s / L[i][i];
-  }
-  for (int i = 0; i < NV; ++i) x[NV - 1 - i] = y[i];
-}
-
-// ---------------------------------------------------------------------------
-// Newton solve on the constraint rows (unilateral rows only).
-// ---------------------------------------------------------------------------
-
-// penalty terms at jar: force and Hessian weight per row, returns the cost
-template <typename T>
-__device__ __forceinline__ T penalty_terms(const T* D, const T* jar, T* force, T* quad_w) {
-  T cost = T(0);
-  ROW_LOOP
-  for (int r = 0; r < NEFC; ++r) {
-    bool neg = jar[r] < T(0);
-    force[r] = neg ? -D[r] * jar[r] : T(0);
-    quad_w[r] = neg ? D[r] : T(0);
-    cost = cost + (neg ? T(0.5) * D[r] * jar[r] * jar[r] : T(0));
-  }
-  return cost;
-}
-
-template <typename T>
-__device__ __forceinline__ T penalty_cost(const T* D, const T* jar) {
-  T cost = T(0);
-  ROW_LOOP
-  for (int r = 0; r < NEFC; ++r)
-    cost = cost + (jar[r] < T(0) ? T(0.5) * D[r] * jar[r] * jar[r] : T(0));
-  return cost;
-}
-
-template <typename T>
-__device__ __forceinline__ T dof_dot(const T* a, const T* b) {
-  T s = a[0] * b[0];
-  for (int i = 1; i < NV; ++i) s = s + a[i] * b[i];
-  return s;
-}
-
-// out[r] = sum over the row's support of J[r][i] * v[i]
-template <typename T>
-__device__ __forceinline__ void jac_apply(const T (*J)[NV], const T* v, T* out) {
-  ROW_LOOP
-  for (int r = 0; r < NEFC; ++r) {
-    T acc = T(0);
-    for (int i = 0; i < NV; ++i)
-      if (g_topo.j_sup[r][i]) acc = acc + J[r][i] * v[i];
-    out[r] = acc;
-  }
-}
-
-// out[i] = sum over rows of J[r][i] * w[r]
-template <typename T>
-__device__ __forceinline__ void jac_t_apply(const T (*J)[NV], const T* w, T* out) {
-  for (int i = 0; i < NV; ++i) out[i] = T(0);
-  ROW_LOOP
-  for (int r = 0; r < NEFC; ++r)
-    for (int i = 0; i < NV; ++i)
-      if (g_topo.j_sup[r][i]) out[i] = out[i] + J[r][i] * w[r];
-}
-
-// x enters as qacc_smooth and leaves as qacc
-template <typename T>
-__device__ __forceinline__ void newton_solve(const T (*J)[NV], const T* D, const T* aref,
-                                             const T (*M)[NV], T* x, T (*H)[NV],
-                                             T (*L)[NV], T tolerance) {
-  T dx[NV], Mdx[NV], jar[NEFC1], force[NEFC1], quad_w[NEFC1];
-  T grad[NV], p[NV], Mp[NV], jv[NEFC1], jar_a[NEFC1];
-  for (int i = 0; i < NV; ++i) { dx[i] = T(0); Mdx[i] = T(0); }
-  jac_apply(J, x, jar);
-  ROW_LOOP
-  for (int r = 0; r < NEFC; ++r) jar[r] = jar[r] - aref[r];
-  bool done = false;
-
-  for (int it = 0; it < ITERATIONS; ++it) {
-    T cost_pen = penalty_terms(D, jar, force, quad_w);
-    T prev_cost = T(0.5) * dof_dot(dx, Mdx) + cost_pen;
-    jac_t_apply(J, force, grad);
-    for (int i = 0; i < NV; ++i) grad[i] = -(Mdx[i] - grad[i]);  // holds -gradient
-
-    // lower-triangle Hessian H = M + J^T diag(w) J on the static pattern
-    for (int i = 0; i < NV; ++i)
-      for (int j = 0; j <= i; ++j)
-        if (g_topo.h_mask[i][j]) H[i][j] = g_topo.m_mask[i][j] ? M[i][j] : T(0);
-    ROW_LOOP
-    for (int r = 0; r < NEFC; ++r)
-      for (int i = 0; i < NV; ++i) {
-        if (!g_topo.j_sup[r][i]) continue;
-        T wi = quad_w[r] * J[r][i];
-        for (int j = 0; j <= i; ++j)
-          if (g_topo.j_sup[r][j]) H[i][j] = H[i][j] + wi * J[r][j];
-      }
-    for (int i = 0; i < NV; ++i)
-      for (int j = 0; j < i; ++j)
-        if (g_topo.h_mask[i][j]) H[j][i] = H[i][j];
-
-    chol_solve<T>(H, g_topo.h_mask, g_topo.h_pat, grad, p, L);
-    jac_apply(J, p, jv);
-    for (int i = 0; i < NV; ++i) {
-      T acc = T(0);
-      for (int j = 0; j < NV; ++j)
-        if (g_topo.m_mask[i][j]) acc = acc + M[i][j] * p[j];
-      Mp[i] = acc;
-    }
-    T pMp = dof_dot(p, Mp);
-    T pMx = dof_dot(p, Mdx);
-
-    // exact Newton line search on alpha
-    T alpha = T(0);
-    for (int ls = 0; ls < (LS_ITERATIONS > 1 ? LS_ITERATIONS : 1); ++ls) {
-      ROW_LOOP
-      for (int r = 0; r < NEFC; ++r) jar_a[r] = jar[r] + alpha * jv[r];
-      T dphi = pMx + alpha * pMp;
-      T jvf = T(0), curv = T(0);
-      ROW_LOOP
-      for (int r = 0; r < NEFC; ++r) {
-        bool neg = jar_a[r] < T(0);
-        jvf = jvf + jv[r] * (neg ? -D[r] * jar_a[r] : T(0));
-        curv = curv + (neg ? D[r] : T(0)) * jv[r] * jv[r];
-      }
-      dphi = dphi - jvf;
-      T ddphi = pMp + curv;
-      alpha = alpha - dphi / tmax(ddphi, T(1e-30));
-    }
-
-    ROW_LOOP
-    for (int r = 0; r < NEFC; ++r) jar_a[r] = jar[r] + alpha * jv[r];
-    T cost_new_pen = penalty_cost(D, jar_a);
-    T new_quad = T(0);
-    for (int i = 0; i < NV; ++i) {
-      T a = dx[i] + alpha * p[i], b = Mdx[i] + alpha * Mp[i];
-      new_quad = i == 0 ? a * b : new_quad + a * b;
-    }
-    T new_cost = T(0.5) * new_quad + cost_new_pen;
-
-    bool improved = (prev_cost - new_cost) > tolerance * tmax(prev_cost, T(1));
-    bool take = !done && new_cost < prev_cost;
-    if (take) {
-      for (int i = 0; i < NV; ++i) {
-        x[i] = x[i] + alpha * p[i];
-        dx[i] = dx[i] + alpha * p[i];
-        Mdx[i] = Mdx[i] + alpha * Mp[i];
-      }
-      ROW_LOOP
-      for (int r = 0; r < NEFC; ++r) jar[r] = jar_a[r];
-    }
-    done = done || !improved;
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // one physics step
@@ -479,7 +301,7 @@ __device__ __noinline__ void step_once(T* qp, T* qv, const T* ct, T* out, int ti
 
   T qacc[NV];
   T L[NV][NV], H[NV][NV];
-  chol_solve<T>(M, tp.m_mask, tp.m_pat, qfrc_smooth, qacc, L);  // qacc_smooth
+  chol_solve<T, NV, false>(M, tp.m_mask, tp.m_pat, qfrc_smooth, qacc, L);  // qacc_smooth
 
   // ---- collision: plane (g1) against sphere (g2) ----
   T con_dist[NCON1], con_pos[NCON1][3], con_frame[NCON1][9];
@@ -581,7 +403,11 @@ __device__ __noinline__ void step_once(T* qp, T* qv, const T* ct, T* out, int ti
   }
 
   // ---- Newton solve ----
-  if (NEFC > 0) newton_solve<T>(J, D, aref, M, qacc, H, L, R.tolerance);
+  if (NEFC > 0) {
+    const RowData<T> rows = {D, aref, nullptr, nullptr};
+    newton_solve<EnginePolicy, T>(LocalMat<T, NV>{J}, rows, LocalMat<T, NV>{M}, qacc, H, L,
+                                  R.tolerance, (T*)nullptr);
+  }
 
   // ---- outputs that belong to the pre-step state ----
   if (out != nullptr) {

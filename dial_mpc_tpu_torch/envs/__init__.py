@@ -34,14 +34,14 @@ def get_env_class(name: str):
     return _envs[name]
 
 
-def get_environment(name: str, config=None, device="cuda", dtype=None):
+def get_environment(name: str, config=None, device="cuda", dtype=None, engine="fused"):
     """Instantiate a registered environment on ``device`` (the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU) with the given physics ``engine`` route."""
     cls = get_env_class(name)
     if config is None:
         config = get_config(name)()
     kw = {} if dtype is None else {"dtype": dtype}
-    return cls(config, device=device, **kw)
+    return cls(config, device=device, engine=engine, **kw)
 
 
 # import side registers the built-in env families

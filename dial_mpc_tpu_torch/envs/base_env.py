@@ -19,6 +19,9 @@ from dial_mpc_tpu_torch.config.base_env_config import BaseEnvConfig
 from dial_mpc_tpu_torch.physics import engine_cuda
 from dial_mpc_tpu_torch.physics import model as mlib
 from dial_mpc_tpu_torch.physics.forward import forward
+from dial_mpc_tpu_torch.physics.forward import step as physics_step
+
+ENGINES = ("fused", "unfused")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -89,9 +92,17 @@ class BaseEnv:
     Subclasses implement ``make_system`` (load + configure the compiled
     scene), ``reset`` and ``step``. The heavy physics state advance is
     ``pipeline_step``: n_frames substeps of the engine under one control.
+
+    ``engine`` chooses how a substep runs on the card: ``"fused"`` is one
+    launch of the whole-step kernel for all n_frames substeps; ``"unfused"``
+    runs the physics stage by stage in plain PyTorch with the solve stage on
+    the standalone Newton-solve kernel. On the CPU both are plain PyTorch.
     """
 
-    def __init__(self, config: BaseEnvConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, config: BaseEnvConfig, device="cuda", dtype=torch.float32, engine="fused"):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; known: {ENGINES}")
+        self.engine = engine
         assert (
             abs(config.dt / config.timestep - round(config.dt / config.timestep)) < 1e-9
         ), "dt must be an integer multiple of timestep"
@@ -146,10 +157,17 @@ class BaseEnv:
     def pipeline_step(self, d: mlib.Data, ctrl: torch.Tensor) -> mlib.Data:
         """Advance n_frames simulator steps under one control (B, nu).
 
-        One call of the step kernel's wrapper for all n_frames substeps: on
-        the card that is one kernel launch, on the CPU the plain version.
+        Fused: one call of the step kernel's wrapper for all n_frames
+        substeps (on the card one kernel launch, on the CPU the plain
+        version). Unfused: n_frames times ``forward.step``, whose solve stage
+        is the solver kernel's wrapper. Both return the same lean Data.
         """
         ctrl = ctrl.to(d.qpos.dtype)
+        if self.engine == "unfused":
+            d = d.replace(ctrl=ctrl)
+            for _ in range(self._n_frames):
+                d = engine_cuda.trim_data(self.sys, physics_step(self.sys, d))
+            return d
         outs = engine_cuda.step_core(self.sys, d.qpos, d.qvel, ctrl, n_steps=self._n_frames)
         return engine_cuda.lean_data(
             self.sys, d, outs, ctrl, self._n_frames * self.sys.opt.timestep

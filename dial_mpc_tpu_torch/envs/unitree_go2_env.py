@@ -1,4 +1,5 @@
-"""Unitree Go2 quadruped: velocity-tracking walk with gait shaping.
+"""Unitree Go2 quadruped: velocity-tracking walk with gait shaping, and
+staged contact-target jumping on the same flat scene.
 
 The reward stack runs inside the batched rollout hot loop, so every term is
 elementwise work on the already-computed physics products (site_xpos, x/xd
@@ -52,8 +53,9 @@ GAIT_PARAMS = {
 class UnitreeGo2Env(BaseEnv):
     """Velocity-tracking walk with gait shaping."""
 
-    def __init__(self, config: UnitreeGo2EnvConfig, device="cuda", dtype=torch.float32):
-        super().__init__(config, device=device, dtype=dtype)
+    def __init__(self, config: UnitreeGo2EnvConfig, device="cuda", dtype=torch.float32,
+                 engine="fused"):
+        super().__init__(config, device=device, dtype=dtype, engine=engine)
 
         self._foot_radius = 0.0175
         self._gait = config.gait
@@ -259,3 +261,269 @@ class UnitreeGo2Env(BaseEnv):
 
 
 register_env("unitree_go2_walk", UnitreeGo2Env, UnitreeGo2EnvConfig)
+
+
+@dataclass
+class UnitreeGo2SeqJumpEnvConfig(UnitreeGo2EnvConfig):
+    jump_dt: float = 1.0
+    contact_targets: torch.Tensor = None
+    contact_target_radius: torch.Tensor = None
+    pose_target_sequence: torch.Tensor = None
+    yaw_target_sequence: torch.Tensor = None
+
+
+def generate_jumping_sequence(com_pos: torch.Tensor, com_heading: torch.Tensor, foot_place_radius):
+    """Per-stage foot contact targets around each CoM pose.
+
+    com_pos (S, 3) and com_heading (S,), in radians. Returns the targets
+    (S, 4, 3), their radii (S, 4), com_pos and com_heading. Foot offsets are
+    ordered FR FL RR RL, the order of the feet-vs-floor contact slots.
+    """
+    n_steps = com_pos.shape[0]
+    assert n_steps == com_heading.shape[0]
+    contact_target_radius = torch.full(
+        (n_steps, 4), foot_place_radius, dtype=com_pos.dtype, device=com_pos.device
+    )
+    offsets = torch.tensor(
+        [
+            [0.2, -0.135, 0.0],  # FR
+            [0.2, 0.135, 0.0],  # FL
+            [-0.2, -0.135, 0.0],  # RR
+            [-0.2, 0.135, 0.0],  # RL
+        ],
+        dtype=com_pos.dtype, device=com_pos.device,
+    )
+    # the heading is in radians and euler_to_quat takes degrees, hence the factor
+    zero = torch.zeros_like(com_heading)
+    euler = torch.stack([zero, zero, com_heading * 180 / math.pi], dim=-1)
+    R = maths.quat_to_mat(maths.euler_to_quat(euler))  # (S, 3, 3)
+    targets = com_pos[:, None, :] + torch.einsum("fj,sij->sfi", offsets, R)
+    return targets, contact_target_radius, com_pos, com_heading
+
+
+class UnitreeGo2SeqJumpEnv(UnitreeGo2Env):
+    """Staged contact-target jumping: a sequence of CoM poses, one per
+    ``jump_dt`` seconds, each with four foot target circles.
+
+    The reference environment pins reward and info to float32 whatever the
+    physics type; here they are in the environment's dtype, which is float32
+    in production.
+    """
+
+    def __init__(self, config: UnitreeGo2SeqJumpEnvConfig, device="cuda", dtype=torch.float32,
+                 engine="fused"):
+        super().__init__(config, device=device, dtype=dtype, engine=engine)
+        if config.contact_targets is None or config.contact_target_radius is None:
+            (
+                self._contact_targets,
+                self._contact_target_radius,
+                self._pose_target_sequence,
+                self._yaw_target_sequence,
+            ) = generate_jumping_sequence(
+                self._tensor(config.pose_target_sequence),
+                self._tensor(config.yaw_target_sequence),
+                0.1,
+            )
+        else:
+            self._contact_targets = self._tensor(config.contact_targets)
+            self._contact_target_radius = self._tensor(config.contact_target_radius)
+            self._pose_target_sequence = self._tensor(config.pose_target_sequence)
+            self._yaw_target_sequence = self._tensor(config.yaw_target_sequence)
+        # wider front-hip envelope for jumping
+        self.joint_range = self._tensor(
+            [
+                [-0.5, 0.5],
+                [0.4, 2.0],
+                [-2.3, -1.3],
+                [-0.5, 0.5],
+                [0.4, 2.0],
+                [-2.3, -1.3],
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -1.3],
+                [-0.5, 0.5],
+                [0.4, 1.4],
+                [-2.3, -1.3],
+            ]
+        )
+
+    def reset(self, generator: torch.Generator = None) -> State:
+        """The B = 1 start state. ``generator`` draws the jump course when
+        ``randomize_tasks`` is set (it must live on the env's device)."""
+        self._generator = generator
+        pipeline_state = self.pipeline_init(
+            self._init_q[None], torch.zeros(1, self._nv, device=self.device, dtype=self.dtype)
+        )
+        z = lambda *shape: torch.zeros(1, *shape, device=self.device, dtype=self.dtype)
+        if self._config.randomize_tasks:
+            course = self.sample_command()
+        else:
+            course = (
+                self._contact_targets, self._contact_target_radius,
+                self._pose_target_sequence, self._yaw_target_sequence,
+            )
+        state_info = {
+            "pos_tar": self._tensor([[0.0, 0.0, 0.27]]),
+            "vel_tar": z(3),
+            "ang_vel_tar": z(3),
+            "yaw_tar": z(),
+            "step": torch.zeros(1, dtype=torch.int32, device=self.device),
+            "z_feet": z(4),
+            "z_feet_tar": z(4),
+            "randomize_target": self._config.randomize_tasks,
+            "last_contact": torch.zeros(1, 4, dtype=torch.bool, device=self.device),
+            "feet_air_time": z(4),
+            "last_ctrl": z(12),
+            "contact_stage": torch.zeros(1, dtype=torch.int32, device=self.device),
+            # the course, carried per sample: (1, S, 4, 3), (1, S, 4), (1, S, 3), (1, S)
+            "contact_targets": course[0][None],
+            "contact_target_radius": course[1][None],
+            "pose_target_sequence": course[2][None],
+            "yaw_target_sequence": course[3][None],
+        }
+        obs = self._get_obs(pipeline_state, state_info)
+        return State(pipeline_state, obs, z(), z(), {}, state_info)
+
+    @staticmethod
+    def _at_stage(sequence: torch.Tensor, stage: torch.Tensor) -> torch.Tensor:
+        """sequence (B, S, ...) at each sample's own stage (B,) -> (B, ...):
+        a gather, so that a step reads nothing back."""
+        idx = stage.long().reshape(-1, 1, *([1] * (sequence.dim() - 2)))
+        return sequence.gather(1, idx.expand(-1, 1, *sequence.shape[2:]))[:, 0]
+
+    def step(self, state: State, action: torch.Tensor, pipeline_next=None) -> State:
+        if self._config.leg_control == "position":
+            ctrl = self.act2joint(action)
+        elif self._config.leg_control == "torque":
+            ctrl = self.act2tau(action, state.pipeline_state)
+        else:
+            raise ValueError("Invalid leg control type.")
+        pipeline_state = self.advance(state, ctrl, pipeline_next)
+        x_pos, x_rot = pipeline_state.x_pos, pipeline_state.x_rot
+        torso = self._torso_idx - 1
+        stage = state.info["contact_stage"]
+        stepf = state.info["step"].to(self.dtype)
+
+        obs = self._get_obs(pipeline_state, state.info)
+
+        # ---- reward stack ----
+        z_feet = pipeline_state.site_xpos[:, self._feet_site_id, 2]
+        duty_ratio, cadence, amplitude = GAIT_PARAMS[self._gait]
+        z_feet_tar = get_foot_step(
+            duty_ratio, cadence, amplitude, self._gait_phases, stepf * self.dt
+        )
+        reward_gaits = -(((z_feet_tar - z_feet) / 0.05) ** 2).sum(-1)
+
+        pos_tar = self._at_stage(state.info["pose_target_sequence"], stage)
+        reward_pos = -((x_pos[:, torso] - pos_tar) ** 2).sum(-1)
+
+        # the reference rotates by x_rot[0], not x_rot[torso]; the base is
+        # body 1 of this scene, so the two are the same row
+        vec = maths.rotate(self._up, x_rot[:, 0])
+        reward_upright = -((vec - self._up) ** 2).sum(-1)
+
+        yaw_tar = self._at_stage(state.info["yaw_target_sequence"], stage)
+        yaw = maths.quat_to_euler(x_rot[:, torso])[:, 2]
+        reward_yaw = -torch.square(yaw - yaw_tar)  # not wrapped to (-pi, pi], as in the reference
+
+        # staged contact-target reward: a foot inside its circle of the
+        # active stage scores by how deep it touches; a ground contact
+        # outside every stage's circle is penalised. Contact slots 0-3 are
+        # the four feet-vs-floor pairs (static pair table). The reference
+        # walks feet x stages in a Python loop; here it is one (B, S, 4) pass.
+        contact_targets = state.info["contact_targets"]  # (B, S, 4, 3)
+        contact_target_radius = state.info["contact_target_radius"]  # (B, S, 4)
+        n_stage = contact_targets.shape[1]
+        cdist = pipeline_state.contact.dist[:, :4]
+        cpos = pipeline_state.contact.pos[:, :4]
+        inside = ((cpos[:, None, :, :2] - contact_targets[..., :2]) ** 2).sum(
+            -1
+        ) <= contact_target_radius**2
+        active = torch.arange(n_stage, device=self.device)[None, :] == stage[:, None]
+        depth = torch.clamp(cdist * -1.0 + 1.0, 0.0, 1.0)
+        reward_contact = (inside * active[:, :, None] * depth[:, None, :]).sum((1, 2))
+        penalty_contact = ((cdist <= 0.001) & ~inside.any(1)).sum(-1)
+
+        reward_energy = -(
+            torch.clamp_min(ctrl * pipeline_state.qvel[:, 6:] / 160.0, 0.0) ** 2
+        ).sum(-1)
+        reward_ctrl_rate = -((ctrl - state.info["last_ctrl"]) ** 2).sum(-1)
+        reward_alive = 1.0
+
+        reward = (
+            reward_gaits * 0.0
+            + reward_pos * 1.0
+            + reward_upright * 1.0
+            + reward_yaw * 0.3
+            + reward_contact * 0.1
+            - penalty_contact * 0.1
+            + reward_energy * 0.0
+            + reward_ctrl_rate * 0.0
+            + reward_alive * 10.0
+        )
+
+        # termination
+        joint_angles = pipeline_state.qpos[:, 7:]
+        done = (maths.rotate(self._up, x_rot[:, torso]) * self._up).sum(-1) < 0
+        done = done | (joint_angles < self.joint_range[:, 0]).any(-1)
+        done = done | (joint_angles > self.joint_range[:, 1]).any(-1)
+        done = done | (x_pos[:, torso, 2] < 0.1)
+        done = done.to(self.dtype)
+
+        info = dict(state.info)
+        info["step"] = state.info["step"] + 1
+        info["z_feet"] = z_feet
+        info["z_feet_tar"] = z_feet_tar
+        info["contact_stage"] = torch.clamp_max(
+            torch.floor(info["step"].to(self.dtype) * self.dt / self._config.jump_dt),
+            n_stage - 1,
+        ).to(torch.int32)
+        info["last_ctrl"] = ctrl
+
+        return state.replace(
+            pipeline_state=pipeline_state, obs=obs, reward=reward, done=done, info=info
+        )
+
+    def _get_obs(self, pipeline_state, state_info) -> torch.Tensor:
+        torso = self._torso_idx - 1
+        x_rot = pipeline_state.x_rot
+        vb = global_to_body_velocity(pipeline_state.xd_vel[:, torso], x_rot[:, torso])
+        # the pi/180 factor on the angular velocity is part of the task definition
+        ab = global_to_body_velocity(
+            pipeline_state.xd_ang[:, torso] * math.pi / 180.0, x_rot[:, torso]
+        )
+        rpy = maths.quat_to_euler(pipeline_state.qpos[:, 3:7])
+        stage = state_info["contact_stage"]
+        pose_target = self._at_stage(state_info["pose_target_sequence"], stage)
+        yaw_target = self._at_stage(state_info["yaw_target_sequence"], stage)
+        diff_position = pipeline_state.x_pos[:, torso] - pose_target
+        diff_yaw = rpy[:, 2] - yaw_target
+        diff_yaw = torch.atan2(torch.sin(diff_yaw), torch.cos(diff_yaw))[:, None]
+        return torch.cat(
+            [
+                state_info["vel_tar"],
+                state_info["ang_vel_tar"],
+                state_info["last_ctrl"],
+                diff_position,
+                rpy[:, :2],
+                diff_yaw,
+                pipeline_state.qpos[:, 7:],
+                vb,
+                ab,
+                pipeline_state.qvel[:, 6:],
+            ],
+            dim=-1,
+        )
+
+    def sample_command(self):
+        """A random jump course of ten hops from the start pose: each hop moves
+        the CoM by up to 0.65 m in x and y and turns it by up to 0.5 rad."""
+        n_steps = 10
+        u = torch.rand(n_steps, 3, generator=self._generator, device=self.device, dtype=self.dtype)
+        com_pos = self._tensor([[0.0, 0.0, 0.27]]).repeat(n_steps + 1, 1)
+        com_pos[1:, :2] += torch.cumsum(u[:, :2] * 1.3 - 0.65, dim=0)
+        com_yaw = torch.cat([u.new_zeros(1), torch.cumsum(u[:, 2] * 1.0 - 0.5, dim=0)])
+        return generate_jumping_sequence(com_pos, com_yaw, 0.1)
+
+
+register_env("unitree_go2_seq_jump", UnitreeGo2SeqJumpEnv, UnitreeGo2SeqJumpEnvConfig)

@@ -7,4 +7,5 @@ environment is available here.
 
 examples = [
     "unitree_go2_trot",
+    "unitree_go2_seq_jump",
 ]

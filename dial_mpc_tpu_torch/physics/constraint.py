@@ -4,15 +4,14 @@ Produces dense, statically-shaped efc tensors:
   J (B, nefc, nv), D, aref, pos, frictionloss, eta (B, nefc).
 
 Row order: dof-friction rows, joint-limit rows, contact rows (pyramidal
-facets per contact slot, slot order from the static pair table). Inactive
+facets or one elliptic group per contact slot, slot order from the static
+pair table). Inactive
 rows (separated contacts, unviolated limits beyond margin) get D = 0 so
 they drop out of the solver algebraically without changing any shapes.
 
 Semantics follow MuJoCo's soft-constraint model: impedance d(r) from
 solimp, stiffness/damping from solref, reference acceleration
 aref = -b*vel - k*d(r)*pos, regularizer R = (1-d)/d * diagApprox.
-
-Elliptic cones (``opt.cone == 1``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,10 +39,27 @@ class Efc:
 
 
 def elliptic_groups(m: Model):
-    """Static (row0, condim) spans of elliptic contact groups in efc rows."""
+    """Static (row0, condim) spans of elliptic contact groups in efc rows.
+
+    Row layout: dof-friction rows, joint-limit rows, then contact rows in
+    slot order. Only meaningful when m.opt.cone == 1; empty otherwise.
+    """
     if m.opt.cone != 1 or m.opt.disable_contact:
         return ()
-    raise NotImplementedError("elliptic friction cones are not ported yet")
+    nrows = sum(1 for i in range(m.nv) if m.dof_frictionloss_static[i] > 0)
+    if not m.opt.disable_limit:
+        for j in range(m.njnt):
+            if m.jnt_limited[j] and m.jnt_type[j] in (SLIDE, HINGE):
+                nrows += 1
+    groups = []
+    for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
+        for _ in range(conmax):
+            if condim == 1:
+                nrows += 1
+            else:
+                groups.append((nrows, condim))
+                nrows += condim
+    return tuple(groups)
 
 
 def _impedance(solimp, pos):
@@ -88,11 +104,9 @@ def _point_jacobian(m: Model, d: Data, point: torch.Tensor, body: int):
 
 
 def make_constraint(m: Model, d: Data) -> Data:
-    if m.opt.cone == 1 and m.ncon and not m.opt.disable_contact:
-        elliptic_groups(m)  # raises: elliptic cones are not ported yet
     B, nv = d.qpos.shape[0], m.nv
     zero = d.qpos.new_zeros(B)
-    rows_J, rows_D, rows_aref, rows_pos, rows_fl = [], [], [], [], []
+    rows_J, rows_D, rows_aref, rows_pos, rows_fl, rows_eta = [], [], [], [], [], []
 
     def unit_row(i, value):
         J = d.qpos.new_zeros(B, nv)
@@ -110,6 +124,7 @@ def make_constraint(m: Model, d: Data) -> Data:
         rows_aref.append(aref)
         rows_pos.append(zero)
         rows_fl.append(m.dof_frictionloss[i].expand(B))
+        rows_eta.append(zero)
 
     # ---- joint limit rows ----
     if not m.opt.disable_limit:
@@ -134,8 +149,9 @@ def make_constraint(m: Model, d: Data) -> Data:
             rows_aref.append(aref * active)
             rows_pos.append(pos)
             rows_fl.append(zero)
+            rows_eta.append(zero)
 
-    # ---- contact rows (pyramidal cone) ----
+    # ---- contact rows (pyramidal or elliptic cone) ----
     if m.ncon and not m.opt.disable_contact:
         con = d.contact
         slot_meta = []
@@ -164,17 +180,36 @@ def make_constraint(m: Model, d: Data) -> Data:
             invweight_t = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
             invweight_r = m.body_invweight0[b1, 1] + m.body_invweight0[b2, 1]
 
-            def add_row(Jrow, R):
+            def add_row(Jrow, R, aref_pos=pos, eta=zero):
                 vel = (Jrow * d.qvel).sum(-1)
-                _, aref = _kbi(m, solref, solimp, pos, vel)
+                _, aref = _kbi(m, solref, solimp, aref_pos, vel)
                 rows_J.append(Jrow * active[:, None])
                 rows_D.append(active / R)
                 rows_aref.append(aref * active)
                 rows_pos.append(pos)
                 rows_fl.append(zero)
+                rows_eta.append(eta)
 
             if condim == 1:
                 add_row(Jn, ((1.0 - imp) / imp * invweight_t).clamp_min(MJ_MINVAL))
+            elif m.opt.cone == 1:
+                # elliptic cone: condim rows [normal, t1, t2, (tor, r1, r2)] with
+                #   R_n = (1-imp)/imp * invweight_t
+                #   R_i = R_n * mu^2 / (eta_i^2 * impratio)   (friction rows)
+                # the normal row's aref has the position term, the friction
+                # rows' are velocity-only
+                fri = con.friction[slot]
+                mu = fri[0]
+                Rn = ((1.0 - imp) / imp * invweight_t).clamp_min(MJ_MINVAL)
+                add_row(Jn, Rn)
+                fric_Js = [along(djacp, 1), along(djacp, 2)]
+                if condim > 3:
+                    fric_Js.append(along(djacr, 0))
+                if condim > 4:
+                    fric_Js += [along(djacr, 1), along(djacr, 2)]
+                for eta_i, Jf in zip(fri[: condim - 1], fric_Js):
+                    Ri = Rn * mu * mu / (eta_i * eta_i * m.opt.impratio).clamp_min(MJ_MINVAL)
+                    add_row(Jf, Ri, aref_pos=zero, eta=eta_i.expand(B))
             else:
                 # pyramidal facets: n +/- mu_k * dir_k
                 fri = con.friction[slot]
@@ -200,7 +235,7 @@ def make_constraint(m: Model, d: Data) -> Data:
             aref=torch.stack(rows_aref, dim=1),
             pos=torch.stack(rows_pos, dim=1),
             frictionloss=torch.stack(rows_fl, dim=1),
-            eta=d.qpos.new_zeros(B, len(rows_J)),
+            eta=torch.stack(rows_eta, dim=1),
         )
     else:
         empty = d.qpos.new_zeros(B, 0)

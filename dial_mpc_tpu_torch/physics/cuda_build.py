@@ -1,0 +1,93 @@
+"""Build one CUDA source of ``csrc/`` into a shared library, once.
+
+The kernels of this package are hand-written C++ in ``csrc/`` with a plain C
+interface; each is compiled by ``nvcc`` for ``sm_90a`` at first use, together
+with the small header of constants its wrapper generates, and loaded with
+``ctypes``. Libraries are cached in the build directory under a hash of the
+sources, the generated headers and the compiler flags.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BuiltLibrary:
+    path: str  # the shared library
+    seconds: float  # nvcc's run time, 0.0 when the library was cached
+    log: str  # the command line and what nvcc and ptxas printed
+
+
+def build_root() -> str:
+    return os.environ.get("DIAL_MPC_BUILD_DIR", os.path.join(_REPO_ROOT, "build"))
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found; the CUDA kernels cannot be built")
+    return nvcc
+
+
+def ptxas_summary(log: str) -> list:
+    """The lines of a build log that give registers, stack and spills."""
+    return [l.strip() for l in log.splitlines() if "spill" in l or "registers" in l]
+
+
+def build_library(name: str, source: str, includes: tuple, generated: dict) -> BuiltLibrary:
+    """Compile ``csrc/<source>`` into ``lib<name>.so`` unless it is cached.
+
+    ``includes`` names the files of ``csrc/`` the source includes (they enter
+    the cache key); ``generated`` maps header file names to their text and is
+    written into the library's own build directory, which is on the include
+    path ahead of ``csrc/``.
+    """
+    h = hashlib.sha256()
+    for fname in sorted(generated):
+        h.update(fname.encode() + b"\0" + generated[fname].encode())
+    for fname in (source, *includes):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = os.path.join(build_root(), name, h.hexdigest()[:16])
+    so_path = os.path.join(out_dir, f"lib{name}.so")
+    log_path = os.path.join(out_dir, "build.log")
+    seconds = 0.0
+    if not os.path.exists(so_path):
+        os.makedirs(out_dir, exist_ok=True)
+        for fname, text in generated.items():
+            with open(os.path.join(out_dir, fname), "w") as f:
+                f.write(text)
+        tmp = f"{so_path}.tmp{os.getpid()}_{threading.get_ident()}"
+        cmd = [
+            find_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC,
+            "-o", tmp, os.path.join(CSRC, source),
+        ]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        with open(log_path, "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{source}: nvcc failed\n{log[-8000:]}")
+        os.replace(tmp, so_path)
+    with open(log_path) as f:
+        log = f.read()
+    return BuiltLibrary(so_path, seconds, log)

@@ -11,23 +11,22 @@ The kernel's code is C++ in ``csrc/``. What is generated here, at build
 time and into the build directory, is only ``model_constants.h``: the
 model's sizes, tree topology, frames, inertias, pair table, sparsity
 patterns and solver schedule as initialisers of constant-memory structs.
-One shared library is built per model key and cached by a hash of sources
-and header; it exposes a plain C interface and is loaded with ``ctypes``.
+One shared library is built per model key (``cuda_build.build_library``); it
+exposes a plain C interface and is loaded with ``ctypes``.
+
+The plain version runs the solve stage in plain PyTorch too
+(``solver.solve_reference``), so it contains no kernel on any device.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 import weakref
 
 import numpy as np
 import torch
 
+from dial_mpc_tpu_torch.physics import cuda_build
 from dial_mpc_tpu_torch.physics.forward import step as physics_step
 from dial_mpc_tpu_torch.physics.model import (
     PLANE,
@@ -37,16 +36,12 @@ from dial_mpc_tpu_torch.physics.model import (
     Model,
     put_model,
 )
+from dial_mpc_tpu_torch.physics.solver import solve_reference
 
 FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_REPO_ROOT = os.path.dirname(os.path.dirname(_CSRC))
-_SOURCES = ("engine_step.cu", "lane_math.cuh", "model_consts.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_CSRC = cuda_build.CSRC
+_INCLUDES = ("lane_math.cuh", "model_consts.cuh", "newton_solve.cuh")
 
 OUTPUT_NAMES = (
     "qpos", "qvel", "site_xpos", "site_xmat", "x_pos", "x_rot",
@@ -378,19 +373,6 @@ def exact_model(m: Model) -> Model:
     return put_model(m.mj_model, device="cpu", dtype=torch.float64)
 
 
-def build_dir() -> str:
-    return os.environ.get("DIAL_MPC_BUILD_DIR", os.path.join(_REPO_ROOT, "build", "engine_cuda"))
-
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("CUDA step kernel: nvcc not found; the kernel cannot be built")
-    return nvcc
-
-
 def load_library(m: Model) -> EngineLibrary:
     """Build (at first use) and load the kernel library for this model."""
     lib = _LIB_OF_MODEL.get(m)
@@ -401,38 +383,11 @@ def load_library(m: Model) -> EngineLibrary:
     if key in _LIBS:
         _LIB_OF_MODEL[m_in] = _LIBS[key]
         return _LIBS[key]
-    header = render_constants_header(m)
-    h = hashlib.sha256(header.encode())
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    tag = h.hexdigest()[:16]
-    out_dir = os.path.join(build_dir(), tag)
-    so_path = os.path.join(out_dir, "libengine_step.so")
-    log_path = os.path.join(out_dir, "build.log")
-    seconds = 0.0
-    if not os.path.exists(so_path):
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "model_constants.h"), "w") as f:
-            f.write(header)
-        tmp = so_path + f".tmp{os.getpid()}"
-        cmd = [
-            _find_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", _CSRC,
-            "-o", tmp, os.path.join(_CSRC, "engine_step.cu"),
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        with open(log_path, "w") as f:
-            f.write(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"CUDA step kernel: nvcc failed\n{log[-8000:]}")
-        os.replace(tmp, so_path)
-    with open(log_path) as f:
-        log = f.read()
-    lib = EngineLibrary(so_path, seconds, log)
+    built = cuda_build.build_library(
+        "engine_step", "engine_step.cu", _INCLUDES,
+        {"model_constants.h": render_constants_header(m)},
+    )
+    lib = EngineLibrary(built.path, built.seconds, built.log)
     expect_in, expect_out = m.nq + m.nv + m.nu, sum(n for _, n in out_specs(m))
     if (lib.in_rows, lib.out_rows) != (expect_in, expect_out):
         raise RuntimeError(
@@ -504,13 +459,18 @@ def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
 step_core.launches = 0
 
 
-def step_core_reference(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
-    """The plain PyTorch version of :func:`step_core` (any device)."""
+def step_core_reference(m: Model, qpos, qvel, ctrl, n_steps: int = 1, solve=solve_reference):
+    """The plain PyTorch version of :func:`step_core` (any device).
+
+    ``solve`` is the solve stage; the default keeps the whole chain in plain
+    PyTorch. With ``solver.solve`` it is the unfused route's step, whose solve
+    stage is the solver kernel on the card.
+    """
     _check_inputs(m, qpos, qvel, ctrl, n_steps)
     B = qpos.shape[0]
     d = Data(qpos=qpos, qvel=qvel, ctrl=ctrl, time=qpos.new_zeros(B))
     for _ in range(n_steps):
-        d = physics_step(m, d)
+        d = physics_step(m, d, solve)
     zero1 = qpos.new_zeros(B, 1)
     return (
         d.qpos,

@@ -25,14 +25,19 @@ def fwd_velocity(m: Model, d: Data) -> Data:
     return d
 
 
-def forward(m: Model, d: Data) -> Data:
-    """Full forward dynamics: populates qacc and all derived fields."""
+def forward(m: Model, d: Data, solve=solver.solve) -> Data:
+    """Full forward dynamics: populates qacc and all derived fields.
+
+    ``solve`` is the constraint-solve stage: ``solver.solve`` (the CUDA
+    kernel for tensors on the card) unless the caller passes
+    ``solver.solve_reference`` to stay in plain PyTorch on any device.
+    """
     d = fwd_position(m, d)
     d = fwd_velocity(m, d)
     d = smooth.actuation(m, d)
     d = smooth.fwd_smooth(m, d)
     d = constraint.make_constraint(m, d)
-    d = solver.solve(m, d)
+    d = solve(m, d)
     d = kinematics.maximal_coordinates(m, d)
     return d
 
@@ -62,9 +67,9 @@ def _euler_damp_qacc(m: Model, d: Data) -> torch.Tensor:
     )
 
 
-def step(m: Model, d: Data) -> Data:
+def step(m: Model, d: Data, solve=solver.solve) -> Data:
     """One Euler step: forward dynamics then semi-implicit integration."""
-    d = forward(m, d)
+    d = forward(m, d, solve)
     h = m.opt.timestep
 
     # static decision: the model either enables eulerdamp or not

@@ -4,12 +4,23 @@ Solves  min_x 0.5 (x - a_s)' M (x - a_s) + sum_i s_i(J_i x - aref_i)
 per sample, with per-row penalties:
   - unilateral rows (limits, pyramidal facets, frictionless contacts):
     quadratic when jar < 0;
-  - dof-friction rows: Huber-shaped (clamped to +/- frictionloss).
-Elliptic contact groups (cone == 1) are not ported yet.
+  - dof-friction rows: Huber-shaped (clamped to +/- frictionloss);
+  - elliptic contact groups (cone == 1): three-zone cone penalty per
+    contact, with
+      u_i = eta_i * jar_i (friction rows), U = ||u||, N = jar_normal
+      top zone    (N >= U):               force 0, cost 0
+      bottom zone (N <= -(ir/mu^2) U):    force -D_i jar_i (per row)
+      middle zone:                        f_n = k (U - N),
+                                          f_i = -k (U - N) eta_i u_i / U
+      with k = 1 / (R_n + mu^2 R_t) and ir = opt.impratio. The cost whose
+      negative gradient is this force is 0 / 0.5 sum D_i jar_i^2 /
+      0.5 k (U - N)^2 per zone (C1-continuous at both boundaries).
 
-This is the dense solve in plain PyTorch: a static schedule of
+``_solve_arrays`` is the dense solve in plain PyTorch: a static schedule of
 ``opt.iterations`` Newton steps, each with ``opt.ls_iterations`` exact
 line-search updates, and a per-sample freeze once a step stops improving.
+It is the plain version of the CUDA kernel in ``solver_cuda``; ``solve``
+sends tensors on the card to that kernel and CPU tensors here.
 """
 
 from __future__ import annotations
@@ -20,15 +31,22 @@ from dial_mpc_tpu_torch.physics import linalg
 from dial_mpc_tpu_torch.physics.constraint import Efc, elliptic_groups
 from dial_mpc_tpu_torch.physics.model import Data, Model
 
+_BIGR = 1e30
+
 
 def _terms(m: Model, efc: Efc, jar: torch.Tensor):
     """Penalty terms at a given jar (B, nefc).
 
-    Returns (force, cost, quad_w): the constraint force per row (B, nefc),
-    the penalty value (B,), and the diagonal Hessian weights (B, nefc).
+    Returns (force, cost, quad_w, mids):
+      force:   (B, nefc) constraint force per row,
+      cost:    (B,) penalty value,
+      quad_w:  (B, nefc) diagonal Hessian weights (simple rows and
+               bottom-zone elliptic rows),
+      mids:    list of (k_mid (B,), g (B, dim), row0, dim), the rank-1
+               middle-zone Gauss-Newton Hessian terms, k_mid masked by the
+               zone flag.
     """
-    if elliptic_groups(m):
-        raise NotImplementedError("elliptic friction cones are not ported yet")
+    groups = elliptic_groups(m)
     D, fl = efc.D, efc.frictionloss
     is_friction = fl > 0
     neg = jar < 0
@@ -45,7 +63,54 @@ def _terms(m: Model, efc: Efc, jar: torch.Tensor):
         torch.where(in_quad, quad, lin),
         torch.where(neg, quad, torch.zeros_like(quad)),
     )
-    return force, cost_rows.sum(-1), quad_w
+    if not groups:
+        return force, cost_rows.sum(-1), quad_w, []
+
+    # elliptic rows leave the simple-row treatment (static mask)
+    simple = torch.ones(D.shape[1], dtype=torch.bool, device=D.device)
+    for (row0, dim) in groups:
+        simple[row0 : row0 + dim] = False
+    zeros = torch.zeros_like(force)
+    force = torch.where(simple, force, zeros)
+    quad_w = torch.where(simple, quad_w, zeros)
+    cost = torch.where(simple, cost_rows, zeros).sum(-1)
+
+    ir = m.opt.impratio
+    mids = []
+    for (row0, dim) in groups:
+        sl = slice(row0, row0 + dim)
+        jr, Dg, eta = jar[:, sl], D[:, sl], efc.eta[:, sl]  # eta[:, 0] is 0 (normal row)
+        mu = eta[:, 1]  # tangent coefficient
+        N = jr[:, 0]
+        u = eta[:, 1:] * jr[:, 1:]
+        U = torch.sqrt((u * u).sum(-1) + 1e-30)
+        big = torch.full_like(N, _BIGR)
+        Rn = torch.where(Dg[:, 0] > 0, 1.0 / Dg[:, 0].clamp_min(1e-30), big)
+        Rt = torch.where(Dg[:, 1] > 0, 1.0 / Dg[:, 1].clamp_min(1e-30), big)
+        k = 1.0 / (Rn + mu * mu * Rt)
+
+        top = N >= U
+        bottom = N <= -(ir / (mu * mu).clamp_min(1e-12)) * U
+        middle = ~(top | bottom)
+
+        f_bottom = -Dg * jr
+        fn_mid = k * (U - N)
+        dirs = eta[:, 1:] * u / U[:, None]
+        f_mid = torch.cat([fn_mid[:, None], -fn_mid[:, None] * dirs], dim=1)
+        f_g = torch.where(bottom[:, None], f_bottom, f_mid)
+        force[:, sl] = torch.where(top[:, None], torch.zeros_like(f_g), f_g)
+
+        cost_bottom = 0.5 * (Dg * jr * jr).sum(-1)
+        cost_mid = 0.5 * k * (U - N) ** 2
+        cost_g = torch.where(bottom, cost_bottom, cost_mid)
+        cost = cost + torch.where(top, torch.zeros_like(cost_g), cost_g)
+
+        quad_w[:, sl] = torch.where(bottom[:, None], Dg, torch.zeros_like(Dg))
+        # middle-zone Gauss-Newton direction g = grad(U - N) over group rows
+        g = torch.cat([-torch.ones_like(N)[:, None], dirs], dim=1)
+        mids.append((k * middle, g, row0, dim))
+
+    return force, cost, quad_w, mids
 
 
 def _solve_arrays(m: Model, J, D, aref, fl, eta, M, qacc_smooth):
@@ -59,7 +124,7 @@ def _solve_arrays(m: Model, J, D, aref, fl, eta, M, qacc_smooth):
     def total_cost(x, jar):
         dx = x - qacc_smooth
         gauss = 0.5 * (dx * mv(M, dx)).sum(-1)
-        _, cost, _ = _terms(m, efc, jar)
+        _, cost, _, _ = _terms(m, efc, jar)
         return gauss + cost
 
     def linesearch(p, x, jar, jv):
@@ -68,9 +133,12 @@ def _solve_arrays(m: Model, J, D, aref, fl, eta, M, qacc_smooth):
 
         def dphi_ddphi(alpha):
             jar_a = jar + alpha[:, None] * jv
-            force, _, quad_w = _terms(m, efc, jar_a)
+            force, _, quad_w, mids = _terms(m, efc, jar_a)
             dphi = pMx + alpha * pMp - (jv * force).sum(-1)
             ddphi = pMp + (quad_w * jv * jv).sum(-1)
+            for (k_mid, g, row0, dim) in mids:
+                gjv = (g * jv[:, row0 : row0 + dim]).sum(-1)
+                ddphi = ddphi + k_mid * gjv * gjv
             return dphi, ddphi
 
         dp, ddp = dphi_ddphi(torch.zeros_like(pMp))
@@ -84,9 +152,12 @@ def _solve_arrays(m: Model, J, D, aref, fl, eta, M, qacc_smooth):
     done = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
     for _ in range(m.opt.iterations):
         jar = mv(J, x) - aref
-        force, _, quad_w = _terms(m, efc, jar)
+        force, _, quad_w, mids = _terms(m, efc, jar)
         grad = mv(M, x - qacc_smooth) - mv(JT, force)
         H = M + JT @ (quad_w[:, :, None] * J)
+        for (k_mid, g, row0, dim) in mids:
+            v = mv(JT[:, :, row0 : row0 + dim], g)  # (B, nv)
+            H = H + k_mid[:, None, None] * v[:, :, None] * v[:, None, :]
         p = -linalg.solve_pd(H, grad)
         jv = mv(J, p)
         alpha = linesearch(p, x, jar, jv)
@@ -99,15 +170,31 @@ def _solve_arrays(m: Model, J, D, aref, fl, eta, M, qacc_smooth):
         done = done | ~improved
 
     jar = mv(J, x) - aref
-    force, _, _ = _terms(m, efc, jar)
+    force, _, _, _ = _terms(m, efc, jar)
     return x, mv(JT, force)
 
 
-def solve(m: Model, d: Data) -> Data:
+def _solve_with(solve_batched, m: Model, d: Data) -> Data:
     efc = d.efc
     if efc.J.shape[1] == 0:
         return d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qacc_smooth))
-    x, qfrc_constraint = _solve_arrays(
+    x, qfrc_constraint = solve_batched(
         m, efc.J, efc.D, efc.aref, efc.frictionloss, efc.eta, d.qM, d.qacc_smooth
     )
     return d.replace(qacc=x, qfrc_constraint=qfrc_constraint)
+
+
+def solve(m: Model, d: Data) -> Data:
+    """The solve stage: the CUDA kernel for tensors on the card (or an
+    error), the plain version for tensors on the CPU."""
+    # solver_cuda imports this module for its plain version
+    from dial_mpc_tpu_torch.physics import solver_cuda
+
+    return _solve_with(solver_cuda.solve_batched, m, d)
+
+
+def solve_reference(m: Model, d: Data) -> Data:
+    """The solve stage in plain PyTorch on any device: what the plain
+    versions of the kernels are built on, so that none of them contains a
+    kernel."""
+    return _solve_with(_solve_arrays, m, d)

@@ -1,0 +1,76 @@
+"""Time the whole-step CUDA kernel alone, for comparing two checkouts on one card.
+
+    PYTHONPATH=<checkout> python <this file> [--repeats N]
+
+Builds the step kernel of whichever ``dial_mpc_tpu_torch`` is first on the
+path, settles the Go2 flat scene into contact at B = 2049 with the plain
+physics on the CPU, and times 100 raw launches (CUDA events) ``--repeats``
+times in float32 and float64. It uses only what every version of the package
+has (``engine_cuda.load_library``, the library's C functions), so one copy of
+this file can time an older checkout: run it once per checkout inside one call,
+in turns (a, b, b, a), and compare only within that call. Prints one JSON line
+with the card's name and power limit.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from dial_mpc_tpu_torch.physics import engine_cuda, make_data, put_model, step
+from dial_mpc_tpu_torch.physics.compiled_model import load_scene
+
+B = 2049
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--label", type=str, default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    mj = load_scene("unitree_go2", "mjx_scene_force.xml")
+    mj.opt.timestep = 0.02
+    rng = np.random.default_rng(0)
+    cpu = put_model(mj, device="cpu", dtype=torch.float32)
+    qpos = np.tile(np.asarray(mj.key_qpos[0], np.float64), (B, 1)) + rng.normal(0, 0.01, (B, mj.nq))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    d = make_data(cpu, B).replace(qpos=t(qpos), qvel=t(rng.normal(0, 0.2, (B, mj.nv))))
+    for _ in range(5):
+        d = step(cpu, d.replace(ctrl=t(rng.uniform(-8.0, 8.0, (B, mj.nu)))))
+    ctrl = t(rng.uniform(-8.0, 8.0, (B, mj.nu)))
+    out = {"label": args.label, "B": B}
+    for dtype in (torch.float32, torch.float64):
+        model = put_model(mj, device="cuda", dtype=dtype)
+        lib = engine_cuda.load_library(model)
+        packed_in = torch.cat([d.qpos, d.qvel, ctrl], dim=1).to("cuda", dtype).t().contiguous()
+        packed_out = torch.empty((lib.out_rows, B), dtype=dtype, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = lib.fn(dtype)
+        times = []
+        for _ in range(args.repeats + 1):  # the first round warms up
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(100):
+                if fn(packed_in.data_ptr(), packed_out.data_ptr(), B, 1, stream) != 0:
+                    sys.exit("launch failed")
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / 100)
+        if not torch.isfinite(packed_out).all():
+            sys.exit("non-finite output")
+        out[str(dtype).split(".")[1] + "_kernel_ms"] = times[1:]
+    out["card"] = subprocess.run(
+        "nvidia-smi --query-gpu=name,power.limit --format=csv,noheader",
+        shell=True, capture_output=True, text=True,
+    ).stdout.strip()
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
-"""Bring another implementation's Model / Data / State leaves into this one.
+"""Bring another implementation's Model / Data / Efc / State leaves into this one.
 
 The inputs are plain dictionaries of numpy arrays (and Python scalars and
 tuples for static fields) under the field names of ``physics.model.Model``,
-``physics.model.Data`` and ``envs.base_env.State``. Tests use these to check
+``physics.model.Data``, ``physics.constraint.Efc`` and ``envs.base_env.State``. Tests use these to check
 ``put_model`` field by field and to start two implementations from the same
 state.
 """
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from dial_mpc_tpu_torch.envs.base_env import State
+from dial_mpc_tpu_torch.physics.constraint import Efc
 from dial_mpc_tpu_torch.physics.model import Contact, Data, Model, Option
 
 _INT_FIELDS = {"geom_bodyid", "site_bodyid", "actuator_dofadr", "con_geom", "con_dim", "geom", "dim"}
@@ -66,6 +67,14 @@ def model_from_numpy(leaves: dict, device="cpu", dtype=torch.float32, disable_bi
     return Model(opt=Option(**opt_kw), **_fields(Model, leaves, device, dtype, skip=("opt",)))
 
 
+def efc_from_numpy(leaves: dict, device="cpu", dtype=torch.float32, batched=True) -> Efc:
+    """Constraint rows (J, D, aref, pos, frictionloss, eta) from a dict of
+    arrays, so that the same rows can go through two solvers. With
+    ``batched=False`` the leaves describe one sample."""
+    kw = _fields(Efc, leaves, device, dtype)
+    return Efc(**{k: v if batched else v[None] for k, v in kw.items()})
+
+
 def data_from_numpy(leaves: dict, device="cpu", dtype=torch.float32, batched=True) -> Data:
     """A Data from a dict of its fields. With ``batched=False`` the leaves
     describe one sample and get a leading batch axis of one."""
@@ -83,6 +92,8 @@ def data_from_numpy(leaves: dict, device="cpu", dtype=torch.float32, batched=Tru
         for name in ("dist", "pos", "frame"):
             ckw[name] = lift(ckw[name]) if ckw.get(name) is not None else None
         kw["contact"] = Contact(**ckw)
+    if leaves.get("efc") is not None:
+        kw["efc"] = efc_from_numpy(leaves["efc"], device, dtype, batched)
     return Data(**kw)
 
 

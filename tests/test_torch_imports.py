@@ -37,7 +37,9 @@ def _imported_modules(path):
 def test_sources_found():
     names = {os.path.relpath(p, ROOT) for p in SOURCES}
     for expected in ("chip_smoke.py", "dial_mpc_tpu_torch/core/runner.py",
-                     "dial_mpc_tpu_torch/physics/engine_cuda.py", "dial_mpc_tpu_torch/envs/unitree_go2_env.py"):
+                     "dial_mpc_tpu_torch/physics/engine_cuda.py", "dial_mpc_tpu_torch/envs/unitree_go2_env.py",
+                     "dial_mpc_tpu_torch/physics/solver_cuda.py", "dial_mpc_tpu_torch/physics/cuda_build.py",
+                     "dial_mpc_tpu_torch/tools/solver_cases.py"):
         assert expected in names
 
 
@@ -89,12 +91,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
         pytest.skip("this machine has a card")
     import dial_mpc_tpu_torch.envs as envs
     from dial_mpc_tpu_torch.core import runner
-    from dial_mpc_tpu_torch.physics import engine_cuda
+    from dial_mpc_tpu_torch.physics import engine_cuda, solver_cuda
 
     cfg = _small_config(tmp_path)
     before = engine_cuda.step_core.launches
     with pytest.raises(RuntimeError, match="cuda"):
         runner.run(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run(cfg, engine="unfused")
+    with pytest.raises(RuntimeError, match="cuda"):
+        envs.get_environment("unitree_go2_seq_jump")
+    assert solver_cuda.solve_batched.launches == 0
     with pytest.raises(RuntimeError, match="cuda"):
         runner.run(cfg)  # the default device is the card
     with pytest.raises(RuntimeError, match="cuda"):
@@ -122,17 +129,48 @@ def test_runner_cli(capsys):
     from dial_mpc_tpu_torch.core import runner
 
     runner.main(["--list-examples"])
-    assert "unitree_go2_trot" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "unitree_go2_trot" in out and "unitree_go2_seq_jump" in out
     with pytest.raises(SystemExit):
         runner.main([])
+    with pytest.raises(SystemExit):
+        runner.main(["--example", "unitree_go2_trot", "--engine", "xla"])
+
+
+@pytest.mark.parametrize("example,engine", [("unitree_go2_trot", "unfused"), ("unitree_go2_seq_jump", "fused")])
+def test_runner_cli_runs_an_example_on_the_cpu(tmp_path, monkeypatch, capsys, example, engine):
+    """The CLI passes --engine and --device through; the example's YAML is
+    read in place, cut down through a copy."""
+    from dial_mpc_tpu_torch.core import runner
+    from dial_mpc_tpu_torch.utils.io_utils import get_example_path
+
+    with open(get_example_path(example + ".yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(Nsample=4, n_steps=2, Ndiffuse=1, Ndiffuse_init=1, output_dir=str(tmp_path / "out"))
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    seen = {}
+    real = runner.dial_envs.get_environment
+    monkeypatch.setattr(runner.dial_envs, "get_environment",
+                        lambda *a, **kw: seen.update(kw) or real(*a, **kw))
+    runner.main(["--config", str(path), "--device", "cpu", "--engine", engine])
+    assert seen["engine"] == engine and str(seen["device"]) == "cpu"
+    assert "mean reward" in capsys.readouterr().out and len(os.listdir(cfg["output_dir"])) == 2
 
 
 def test_registry():
     import dial_mpc_tpu_torch.envs as envs
-    from dial_mpc_tpu_torch.envs.unitree_go2_env import UnitreeGo2Env, UnitreeGo2EnvConfig
+    from dial_mpc_tpu_torch.envs.unitree_go2_env import (
+        UnitreeGo2Env, UnitreeGo2EnvConfig, UnitreeGo2SeqJumpEnv, UnitreeGo2SeqJumpEnvConfig,
+    )
 
     assert envs.get_env_class("unitree_go2_walk") is UnitreeGo2Env
     assert envs.get_config("unitree_go2_walk") is UnitreeGo2EnvConfig
+    assert envs.get_env_class("unitree_go2_seq_jump") is UnitreeGo2SeqJumpEnv
+    assert envs.get_config("unitree_go2_seq_jump") is UnitreeGo2SeqJumpEnvConfig
+    with pytest.raises(ValueError, match="engine"):
+        envs.get_environment("unitree_go2_walk", device="cpu", engine="xla")
+    assert envs.get_environment("unitree_go2_walk", device="cpu", engine="unfused").engine == "unfused"
     with pytest.raises(ValueError):
         envs.get_env_class("unitree_h1_walk")
     envs.register_env("alias_for_test", UnitreeGo2Env, UnitreeGo2EnvConfig)

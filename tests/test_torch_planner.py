@@ -435,3 +435,254 @@ def test_state_from_numpy(planner):
     assert "rng" not in back.info and back.info["step"].dtype == torch.int32 and int(back.info["step"][0]) == 4
     assert back.info["last_contact"].dtype == torch.bool and back.info["randomize_target"] is False
     assert back.reward.shape == (1,) and back.reward.dtype == F64
+
+
+# ---------------------------------------------------------------------------
+# Go2 seq-jump: course, step on a replayed Data, golden trajectory
+# ---------------------------------------------------------------------------
+
+JUMP_GOLDEN = os.path.join(os.path.dirname(GOLDEN), "unitree_go2_seq_jump.npz")
+
+
+def _example_config(example):
+    with open(get_example_path(example + ".yaml")) as f:
+        cfgd = yaml.safe_load(f)
+    cfgd.update(OVERRIDES)
+    return cfgd
+
+
+@pytest.fixture(scope="module")
+def jump_planner():
+    cfgd = _example_config("unitree_go2_seq_jump")
+    cfg = load_dataclass_from_dict(DialConfig, cfgd)
+    env_cfg = load_dataclass_from_dict(
+        torch_envs.get_config(cfg.env_name), cfgd, convert_list_to_array=True, dtype=F64
+    )
+    env = torch_envs.get_environment(cfg.env_name, env_cfg, device="cpu", dtype=F64)
+    return cfg, env, MBDPI(cfg, env, torch.Generator().manual_seed(0))
+
+
+@pytest.fixture(scope="module")
+def jax_jump_env():
+    cfgd = _example_config("unitree_go2_seq_jump")
+    cfg = load_dataclass_from_dict(JaxDialConfig, cfgd)
+    env_cfg = load_dataclass_from_dict(jax_envs.get_config(cfg.env_name), cfgd, convert_list_to_array=True)
+    return cfg, jax_envs.get_environment(cfg.env_name, env_cfg)
+
+
+def test_generate_jumping_sequence_matches_jax():
+    from dial_mpc_tpu.envs.unitree_go2_env import generate_jumping_sequence as jax_generate
+    from dial_mpc_tpu_torch.envs.unitree_go2_env import generate_jumping_sequence
+
+    rng = np.random.default_rng(8)
+    com_pos = np.concatenate([rng.uniform(-2, 2, (7, 2)), np.full((7, 1), 0.27)], axis=1)
+    heading = rng.uniform(-3, 3, 7)
+    got = generate_jumping_sequence(torch.tensor(com_pos), torch.tensor(heading), 0.1)
+    ref = jax_generate(com_pos, heading, 0.1)  # float32 inside
+    assert got[0].shape == (7, 4, 3) and got[1].shape == (7, 4)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-6)
+    # a quarter turn to the left carries the front-right foot from (0.2, -0.135) to (0.135, 0.2)
+    q = generate_jumping_sequence(torch.tensor([[0.0, 0.0, 0.27]], dtype=F64), torch.tensor([np.pi / 2], dtype=F64), 0.1)
+    np.testing.assert_allclose(q[0][0, 0].numpy(), [0.135, 0.2, 0.27], atol=1e-12)
+
+
+def test_seq_jump_reset_state(jump_planner, jax_jump_env):
+    _, env, _ = jump_planner
+    _, jenv = jax_jump_env
+    st = env.reset()
+    js = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
+    assert st.obs.shape == (1, 3 + 3 + 12 + 3 + 2 + 1 + 12 + 3 + 3 + 12)
+    np.testing.assert_allclose(st.obs[0].numpy(), np.asarray(js.obs), atol=1e-6)
+    for key in ("contact_targets", "contact_target_radius", "pose_target_sequence", "yaw_target_sequence", "pos_tar"):
+        np.testing.assert_allclose(st.info[key][0].numpy(), np.asarray(js.info[key]), atol=1e-6, err_msg=key)
+    assert st.info["contact_stage"].dtype == torch.int32 and st.info["contact_targets"].shape == (1, 5, 4, 3)
+    big = expand_state(st, 3)
+    assert big.info["contact_targets"].shape == (3, 5, 4, 3) and big.info["last_ctrl"].shape == (3, 12)
+
+
+def test_seq_jump_random_course_draws_from_the_generator(jump_planner):
+    cfg, env, _ = jump_planner
+    rand_cfg = dataclasses.replace(env._config, randomize_tasks=True)
+    renv = torch_envs.get_environment(cfg.env_name, rand_cfg, device="cpu", dtype=F64)
+    a = renv.reset(torch.Generator().manual_seed(5))
+    b = renv.reset(torch.Generator().manual_seed(5))
+    c = renv.reset(torch.Generator().manual_seed(6))
+    assert a.info["contact_targets"].shape == (1, 11, 4, 3) and a.info["yaw_target_sequence"].shape == (1, 11)
+    assert torch.equal(a.info["pose_target_sequence"], b.info["pose_target_sequence"])
+    assert not torch.equal(a.info["pose_target_sequence"], c.info["pose_target_sequence"])
+    pose, yaw = a.info["pose_target_sequence"][0], a.info["yaw_target_sequence"][0]
+    assert torch.equal(pose[0], torch.tensor([0.0, 0.0, 0.27], dtype=F64)) and float(yaw[0]) == 0.0
+    assert (pose[1:, :2] - pose[:-1, :2]).abs().max() <= 0.65 and (yaw[1:] - yaw[:-1]).abs().max() <= 0.5
+    assert (pose[:, 2] == 0.27).all()
+    nxt = renv.step(a, torch.zeros(1, 12, dtype=F64))
+    assert torch.isfinite(nxt.reward).all() and nxt.obs.shape == a.obs.shape
+
+
+def _jax_info(info, i):
+    """Sample i of the port's info as the JAX env's (float32-pinned) info."""
+    out = {"rng": jax.random.PRNGKey(0)}
+    for k, v in info.items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = v
+        elif v.dtype == torch.int32:
+            out[k] = jnp.asarray(int(v[i]), jnp.int32)
+        elif v.dtype == torch.bool:
+            out[k] = jnp.asarray(v[i].numpy())
+        else:
+            out[k] = jnp.asarray(v[i].numpy(), jnp.float32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def replayed_jump(jump_planner, jax_jump_env):
+    """Four samples stepped a few times by the port, set to steps on either
+    side of a stage change, then one more step on both sides with the port's
+    next pipeline state replayed into the JAX env."""
+    _, env, _ = jump_planner
+    _, jenv = jax_jump_env
+    rng = np.random.default_rng(17)
+    n = 4
+    st = expand_state(env.reset(), n)
+    for _ in range(6):
+        st = env.step(st, torch.tensor(rng.uniform(-1, 1, (n, 12))))
+    steps = torch.tensor([6, 49, 50, 120], dtype=torch.int32)
+    st = st.replace(info={**st.info, "step": steps, "contact_stage": torch.tensor([0, 0, 1, 2], dtype=torch.int32)})
+    action = torch.tensor(rng.uniform(-1, 1, (n, 12)))
+    nxt = env.step(st, action)
+    f32 = jnp.float32
+    step_j = jax.jit(jenv.step)
+    outs = []
+    for i in range(n):
+        js = JaxState(
+            _jax_data(jenv.sys, st.pipeline_state, i), jnp.asarray(st.obs[i].numpy()),
+            jnp.asarray(st.reward[i].numpy(), f32), jnp.asarray(st.done[i].numpy(), f32), {}, _jax_info(st.info, i),
+        )
+        outs.append(step_j(js, jnp.asarray(action[i].numpy()), _jax_data(jenv.sys, nxt.pipeline_state, i)))
+    return nxt, outs
+
+
+# float32 resolution, as for the trot step: the JAX env pins reward and info
+# to float32 (rewards are O(10) here: 1e-5 relative to that is 1e-6 of O(1))
+@pytest.mark.parametrize("what,tol", [("reward", 1e-5), ("done", 0.0), ("obs", 1e-6), ("ctrl", 1e-6)])
+def test_seq_jump_step_matches_jax_on_replayed_data(replayed_jump, what, tol):
+    nxt, outs = replayed_jump
+    for i, js in enumerate(outs):
+        got = {"reward": nxt.reward, "done": nxt.done, "obs": nxt.obs, "ctrl": nxt.pipeline_state.ctrl}[what][i]
+        ref = {"reward": js.reward, "done": js.done, "obs": js.obs, "ctrl": js.pipeline_state.ctrl}[what]
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, err_msg=f"sample {i}")
+
+
+@pytest.mark.parametrize("key", ["step", "contact_stage", "last_ctrl", "z_feet", "z_feet_tar"])
+def test_seq_jump_info_matches_jax_on_replayed_data(replayed_jump, key):
+    nxt, outs = replayed_jump
+    for i, js in enumerate(outs):
+        np.testing.assert_allclose(
+            nxt.info[key][i].numpy().astype(np.float64), np.asarray(js.info[key], np.float64), atol=1e-6
+        )
+    assert nxt.info["contact_stage"].tolist() == [0, 1, 1, 2] and nxt.info["contact_stage"].dtype == torch.int32
+
+
+def test_seq_jump_contact_reward_matches_the_reference_loop(jump_planner):
+    """The (B, stage, foot) pass against the feet x stages loop it replaces,
+    on contact points placed inside, outside and between the circles."""
+    _, env, _ = jump_planner
+    rng = np.random.default_rng(21)
+    n = 16
+    st = expand_state(env.reset(), n)
+    targets = st.info["contact_targets"]
+    stage = torch.tensor(rng.integers(0, 5, n), dtype=torch.int32)
+    near = targets[torch.arange(n), torch.tensor(rng.integers(0, 5, n))]  # (n, 4, 3): some stage's circles
+    cpos = near + torch.tensor(rng.normal(0, 0.08, (n, 4, 3)))
+    cdist = torch.tensor(rng.uniform(-0.02, 0.02, (n, 4)))
+    ps = st.pipeline_state
+    nxt_ps = ps.replace(contact=dataclasses.replace(ps.contact, dist=cdist, pos=cpos))
+    st = st.replace(info={**st.info, "contact_stage": stage})
+    base = env.step(st.replace(info={**st.info, "contact_targets": targets + 100.0}), torch.zeros(n, 12, dtype=F64), nxt_ps)
+    got = env.step(st, torch.zeros(n, 12, dtype=F64), nxt_ps)
+    radius = st.info["contact_target_radius"]
+    expect = np.zeros(n)
+    for b in range(n):
+        reward, penalty = 0.0, 0
+        for i in range(4):
+            in_any = False
+            for j in range(5):
+                cond = float(((cpos[b, i, :2] - targets[b, j, i, :2]) ** 2).sum()) <= float(radius[b, j, i]) ** 2
+                if cond and j == int(stage[b]):
+                    reward += min(max(1.0 - float(cdist[b, i]), 0.0), 1.0)
+                in_any |= cond
+            penalty += int(float(cdist[b, i]) <= 0.001 and not in_any)
+        # `base` has every circle far away: no reward, every touching foot penalised
+        base_penalty = int((cdist[b] <= 0.001).sum())
+        expect[b] = 0.1 * reward - 0.1 * penalty + 0.1 * base_penalty
+    np.testing.assert_allclose((got.reward - base.reward).numpy(), expect, atol=1e-12)
+    assert np.abs(expect).max() > 0.05
+
+
+@pytest.fixture(scope="module")
+def jump_golden_run(jump_planner):
+    cfg, env, pl = jump_planner
+    shape = (cfg.Nsample, cfg.Hnode + 1, pl.nu)
+    draws = _jax_draws(cfg.seed, [(cfg.Ndiffuse_init, shape)] + [(cfg.Ndiffuse, shape)] * (cfg.n_steps - 1))
+    st = env.reset()
+    Y = torch.zeros(cfg.Hnode + 1, pl.nu, dtype=F64)
+    Ys, rewards, qpos = [], [], []
+    for t in range(cfg.n_steps):
+        st, Y, _ = pl.control_step(st, Y, draws[t].shape[0], eps=torch.tensor(draws[t]))
+        Ys.append(Y.numpy())
+        rewards.append(float(st.reward))
+        qpos.append(st.pipeline_state.qpos[0].numpy())
+    return np.stack(Ys), np.asarray(rewards), np.stack(qpos)
+
+
+# the tolerances of the trot golden, for the same reason; the reward is O(10)
+# here, so its float32 rounding in the reference is ten times the trot's
+@pytest.mark.parametrize("what,tol", [("Y", 2e-5), ("reward", 5e-6), ("qpos", 2e-6)])
+def test_seq_jump_control_step_reproduces_golden(jump_golden_run, what, tol):
+    ref = np.load(JUMP_GOLDEN)
+    got = dict(zip(("Y", "reward", "qpos"), jump_golden_run))[what]
+    assert got.shape == ref[what].shape
+    np.testing.assert_allclose(got, ref[what], atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the two engine routes
+# ---------------------------------------------------------------------------
+
+def test_unfused_engine_equals_fused_over_control_steps(planner):
+    """On the CPU both routes are the same plain physics, reached two ways
+    (step_core's plain version + lean_data, forward.step + trim_data): a few
+    control steps agree to 1e-9 (positions, plan) / 1e-7 (velocities)."""
+    cfg, env, _ = planner
+    unfused = torch_envs.get_environment(cfg.env_name, env._config, device="cpu", dtype=F64, engine="unfused")
+    assert env.engine == "fused" and unfused.engine == "unfused"
+    shape = (cfg.Nsample, cfg.Hnode + 1, 12)
+    draws = _jax_draws(3, [(cfg.Ndiffuse_init, shape)] + [(cfg.Ndiffuse, shape)] * 2)
+    traces = []
+    for e in (env, unfused):
+        pl = MBDPI(cfg, e)
+        st, Y, trace = e.reset(), torch.zeros(cfg.Hnode + 1, 12, dtype=F64), []
+        for eps in draws:
+            st, Y, info = pl.control_step(st, Y, eps.shape[0], eps=torch.tensor(eps))
+            ps = st.pipeline_state
+            trace.append((Y, ps.qpos, ps.x_pos, ps.site_xpos, ps.contact.dist, ps.qvel, ps.xd_vel, ps.qacc, st.reward, info["rews"]))
+        traces.append(trace)
+        assert ps.xpos is None and ps.efc is None and ps.contact.frame is None, "both routes carry the lean Data"
+    for a, b in zip(*traces):
+        for k, (x, y) in enumerate(zip(a, b)):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-9 if k < 5 else 1e-7, rtol=0)
+
+
+def test_unfused_pipeline_step_substeps(planner):
+    """n_frames = 4 substeps under one control: both routes, same lean Data."""
+    cfg, env, _ = planner
+    sub_cfg = dataclasses.replace(env._config, timestep=0.005)
+    envs = [torch_envs.get_environment(cfg.env_name, sub_cfg, device="cpu", dtype=F64, engine=e) for e in ("fused", "unfused")]
+    assert envs[0]._n_frames == 4
+    ctrl = torch.tensor(np.random.default_rng(4).uniform(-5, 5, (3, 12)))
+    outs = [e.pipeline_step(expand_state(e.reset(), 3).pipeline_state, ctrl) for e in envs]
+    for name in ("qpos", "qvel", "ctrl", "time", "site_xpos", "x_pos", "x_rot", "xd_vel", "xd_ang", "qacc"):
+        np.testing.assert_allclose(getattr(outs[0], name).numpy(), getattr(outs[1], name).numpy(), atol=1e-9, err_msg=name)
+    np.testing.assert_allclose(outs[1].time.numpy(), 0.02, atol=1e-15)
+    with pytest.raises(ValueError, match="engine"):
+        torch_envs.get_environment(cfg.env_name, sub_cfg, device="cpu", engine="pallas")
