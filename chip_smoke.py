@@ -10,8 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      Go2 flat scene's key and for a synthetic key with elliptic groups;
   3. each kernel against its plain PyTorch version on the card:
      - the step kernel: Go2 flat scene, a contact-rich batch, B = 2049 and
-       B = 1, float64 and float32, and n_steps = 4 against four sequential
-       launches;
+       B = 1, float64 and float32, n_steps = 4 against four sequential
+       launches, and two launches on the same inputs (bit for bit); its
+       occupancy (teams per SM) and ptxas numbers by type;
      - the solver kernel: the constraint rows of the same batch (at-limit
        states included and counted), B = 2049 and B = 1, float64 and float32,
        and the synthetic problem of tools/solver_cases.py, which puts rows in
@@ -204,8 +205,18 @@ def phase_compare(mj):
         if not torch.equal(a, b):
             raise AssertionError(f"float32 n_steps=4 differs from four launches in {name}")
 
+    # two launches on the same inputs, the same bits: the team's sums have a
+    # fixed order and no lane reads what another writes in the same phase
+    for name, model, args in (("float64", m64, (qpos, qvel, ctrl)), ("float32", m32, (q32, v32, c32))):
+        a = engine_cuda.step_core(model, *args, 1)
+        b = engine_cuda.step_core(model, *args, 1)
+        torch.cuda.synchronize()
+        for out_name, x, y in zip(engine_cuda.OUTPUT_NAMES, a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: two launches on the same inputs differ in {out_name}")
+
     emit(
-        "compare", ok=True, samples_at_joint_limit=n_limit,
+        "compare", ok=True, samples_at_joint_limit=n_limit, repeat_launch_bit_equal=True,
         tolerance={"f64": {**TOL_F64, "rest": TOL_F64_DEFAULT}, "f32": {**TOL_F32, "rest": TOL_F32_DEFAULT}},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
         n_steps4_equals_four_launches=True,
@@ -217,16 +228,24 @@ def phase_compare(mj):
     torch.cuda.synchronize()
     wrapper_ms = cuda_ms(lambda: engine_cuda.step_core(m32, q32, v32, c32, 1), 100)
     lib = engine_cuda.load_library(m32)
-    packed_in = torch.cat([q32, v32, c32], dim=1).t().contiguous()
-    packed_out = torch.empty((lib.out_rows, B_FULL), dtype=torch.float32, device=DEVICE)
     stream = torch.cuda.current_stream().cuda_stream
-    fn = lib.fn(torch.float32)
 
-    def raw():
-        err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B_FULL, 1, stream)
-        require(err == 0, f"launch failed with cudaError {err}")
+    def raw_launch(q, v, c_, n=1):
+        """The bare kernel on packed sample-major arrays, timed by the caller."""
+        packed_in = torch.cat([q, v, c_], dim=1)
+        packed_out = torch.empty((q.shape[0], lib.out_rows), dtype=q.dtype, device=DEVICE)
+        fn = lib.fn(q.dtype)
 
+        def go():
+            err = fn(packed_in.data_ptr(), packed_out.data_ptr(), q.shape[0], n, stream)
+            require(err == 0, f"launch failed with cudaError {err}")
+
+        return go
+
+    raw = raw_launch(q32, v32, c32)
     kernel_ms = cuda_ms(raw, 100)
+    kernel_b1_ms = cuda_ms(raw_launch(q32[:1], v32[:1], c32[:1]), 100)
+    kernel64_ms = cuda_ms(raw_launch(qpos, qvel, ctrl), 50)
     engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: engine_cuda.step_core_reference(m32, q32, v32, c32, 1), 3)
@@ -240,10 +259,26 @@ def phase_compare(mj):
     timing = dict(
         max_abs_err=errs["f32_B2049"], wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, bytes=nbytes, flops=flops,
+        kernel_b1_ms=kernel_b1_ms, kernel64_ms=kernel64_ms, lanes=lib.lanes,
+        teams_per_sm={"float32": lib.teams_per_sm(torch.float32), "float64": lib.teams_per_sm(torch.float64)},
+        team_shared_bytes={"float32": lib.team_bytes(torch.float32), "float64": lib.team_bytes(torch.float64)},
+        ptxas=engine_ptxas(lib),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
     states = dict(settled=(qpos, qvel, ctrl), at_limits=(ql, vl, ctrl), n_limit=n_limit)
     return timing, m64, m32, states
+
+
+def engine_ptxas(lib):
+    """Registers, stack, spills and static shared memory of the step kernel,
+    by type, from its build log."""
+    kinds = {"IfE": "float32", "IdE": "float64"}
+    return {
+        kind: numbers
+        for name, numbers in cuda_build.ptxas_entries(lib.build_log).items()
+        if "engine_step_kernel" in name
+        for tag, kind in kinds.items() if tag in name
+    }
 
 
 def solver_rows(model, qpos, qvel, ctrl):
@@ -525,7 +560,7 @@ def build_all(mj):
         "build", ok=True, seconds=time.time() - t0,
         libraries={
             name: dict(seconds=lib.build_seconds, library=os.path.relpath(lib.path),
-                       ptxas=cuda_build.ptxas_summary(lib.build_log))
+                       ptxas=cuda_build.ptxas_entries(lib.build_log))
             for name, lib in libs.items()
         },
     )
@@ -555,6 +590,8 @@ def main():
     build_all(mj)
 
     timing_e, m64, m32, states = phase_compare(mj)
+    emit("engine_step_timing", **{k: v for k, v in timing_e.items() if k != "max_abs_err"},
+         card=smi)
     timing_s = phase_solver_compare(m64, m32, states)
     phase_fused_vs_unfused(m64, states)
     phase_small_input()
@@ -583,6 +620,9 @@ def main():
             "dial_mpc_tpu/physics/engine_pallas.py:1341", launches_e, timing_e,
             path="unitree_go2_trot, fused route", control_step_ms_median=step_ms_fused,
             launches_seq_jump=launches_jump, control_step_ms_median_seq_jump=step_ms_jump,
+            kernel_b1_ms=timing_e["kernel_b1_ms"], f64_kernel_ms=timing_e["kernel64_ms"],
+            lanes=timing_e["lanes"], teams_per_sm=timing_e["teams_per_sm"],
+            team_shared_bytes=timing_e["team_shared_bytes"], ptxas=timing_e["ptxas"],
         ),
         kernel_line(
             "solver_newton", "dial_mpc_tpu_torch/csrc/solver_newton.cu",

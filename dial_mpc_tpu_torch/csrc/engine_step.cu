@@ -1,30 +1,39 @@
-// One whole physics step per sample, one sample per thread.
+// One whole physics step per sample, a team of lanes per sample.
 //
 // Replaces the JAX package's Pallas step kernel,
 // dial_mpc_tpu/physics/engine_pallas.py::_build_step_kernel and
 // ::_build_multistep_kernel, together with the Newton solve it calls in
 // kernel, dial_mpc_tpu/physics/solver_pallas.py::newton_solve_rows and
-// ::_chol_solve_lanes.
+// ::_chol_solve_lanes (here newton_solve_team.cuh).
 //
 // Stages, per sample: kinematics -> geom/site frames -> CoM and spatial
 // inertias -> com velocities -> RNE bias -> CRB mass matrix -> passive and
 // actuation -> collision over the static pair table -> constraint rows ->
 // sparse Newton solve with exact line search -> Euler integration with the
 // quaternion update -> maximal-coordinate views taken at the pre-step
-// kinematics. With n_steps > 1 the (qpos, qvel) carry stays in the thread
+// kinematics. With n_steps > 1 the (qpos, qvel) carry stays in shared memory
 // and only the last substep writes outputs.
 //
 // What bounds it: traffic is NQ+NV+NU values in and N_OUT_ROWS values out
 // per sample and launch (49 + 300 for the Go2 flat scene, about 2.9 MB at
-// 2049 samples in float32), against tens of thousands of dependent
-// floating-point operations per sample. At one sample per thread 2049
-// samples are 65 warps for 132 SMs, so the kernel is bound by dependent
-// arithmetic latency and occupancy, not by memory. This first design does
-// nothing about that beyond spreading the warps over the SMs (32 threads a
-// block): the per-thread working set (mass matrix, Hessian, Jacobian rows)
-// lives in local memory, the sample axis is contiguous in global memory so
-// loads and stores coalesce, and loops over bodies, dofs and rows are real
-// loops whose static sparsity is read from constant memory.
+// 2049 samples in float32), against some 3e4 floating-point operations per
+// sample, almost all of them in chains that depend on each other: the time is
+// the latency of one sample's chain, not bytes and not the card's rate.
+// The design shortens the chain and overlaps many of them:
+// - a team of LANES lanes (a warp by default, newton_solve_team.cuh) works on
+//   one sample, SAMPLES_PER_BLOCK teams a block, so 2049 samples are 2049
+//   warps and one wave on 132 SMs in float32;
+// - every stage is split over the team's lanes, one lane for each value it
+//   owns: bodies of one tree level (the legs together), dofs, the masked
+//   entries of M and of the Hessian, contact-dof pairs, constraint rows, the
+//   entries of a Cholesky column; each value is summed by its lane in a fixed
+//   order, so the results do not depend on timing;
+// - the sample's working set (M, H, L, J, the inertias, the frames, the solve's
+//   vectors) lives in dynamic shared memory, StepShared<T>, with what dies
+//   early aliased by what comes later;
+// - the model's tables are read from global memory (model_consts.cuh).
+// The boundary is sample-major: a sample's inputs and outputs are one
+// contiguous row, which its team reads and writes together.
 //
 // Scope: free and hinge joints, plane-sphere pairs of condim 3, pyramidal
 // cones, plain Euler (eulerdamp disabled), no friction-loss dofs. The Python
@@ -34,7 +43,7 @@
 
 #include "lane_math.cuh"
 #include "model_consts.cuh"
-#include "newton_solve.cuh"
+#include "newton_solve_team.cuh"
 
 using namespace mc;
 
@@ -44,23 +53,26 @@ using namespace mc;
 // soft-constraint impedance and reference acceleration
 // ---------------------------------------------------------------------------
 
+// the soft constraint's impedance at pos; only the branch of the power law
+// that applies is evaluated (its pow calls dominate a row's chain)
 template <typename T>
 __device__ __forceinline__ T impedance(const T* solimp, T pos) {
   const T d0 = solimp[0], dmax = solimp[1], width = solimp[2], mid = solimp[3],
           power = solimp[4];
-  T x = fabs(pos) / tmax(width, T(MJ_MINVAL));
-  T ya = pow(x, power) / tmax(pow(mid, power - T(1)), T(MJ_MINVAL));
-  T yb = T(1) - pow(T(1) - x, power) / tmax(pow(T(1) - mid, power - T(1)), T(MJ_MINVAL));
-  T y = x < mid ? ya : yb;
-  T imp = tclip(d0 + y * (dmax - d0), T(1e-4), T(0.9999));
-  return x > T(1) ? dmax : imp;
+  const T x = fabs(pos) / tmax(width, T(MJ_MINVAL));
+  if (x > T(1)) return dmax;
+  T y;
+  if (x < mid)
+    y = pow(x, power) / tmax(pow(mid, power - T(1)), T(MJ_MINVAL));
+  else
+    y = T(1) - pow(T(1) - x, power) / tmax(pow(T(1) - mid, power - T(1)), T(MJ_MINVAL));
+  return tclip(d0 + y * (dmax - d0), T(1e-4), T(0.9999));
 }
 
-// returns the impedance; *aref = -b*vel - k*imp*pos
+// the reference acceleration -b*vel - k*imp*pos of a row of impedance imp
 template <typename T>
-__device__ __forceinline__ T kbi(const T* solref, const T* solimp, T timestep, T pos, T vel,
-                                 T* aref) {
-  T imp = impedance(solimp, pos);
+__device__ __forceinline__ T ref_acc(const T* solref, const T* solimp, T timestep, T imp, T pos,
+                                     T vel) {
   T dmax = solimp[1];
   T timeconst = tmax(solref[0], T(2) * timestep);
   T dampratio = solref[1];
@@ -68,8 +80,7 @@ __device__ __forceinline__ T kbi(const T* solref, const T* solimp, T timestep, T
   T k = T(1) / tmax(dmax * dmax * timeconst * timeconst * dampratio * dampratio, T(MJ_MINVAL));
   if (solref[0] <= T(0)) k = -solref[0] / tmax(dmax * dmax, T(MJ_MINVAL));
   if (solref[1] <= T(0)) b = -solref[1] / tmax(dmax, T(MJ_MINVAL));
-  *aref = -b * vel - k * imp * pos;
-  return imp;
+  return -b * vel - k * imp * pos;
 }
 
 // mju_makeFrame rows [n; t1; t2]
@@ -85,98 +96,151 @@ __device__ __forceinline__ void make_frame(T* frame, const T* n) {
 }
 
 // ---------------------------------------------------------------------------
-// The in-kernel Newton solve (newton_solve.cuh) on this model's static
-// sparsity: unilateral rows only, patterns read from constant memory.
+// The team Newton solve (newton_solve_team.cuh) on this model's static
+// sparsity: unilateral rows only, lists read from global memory.
 // ---------------------------------------------------------------------------
 
 struct EnginePolicy {
   static constexpr int NV = mc::NV, NEFC = mc::NEFC;
   static constexpr int ITERATIONS = mc::ITERATIONS, LS_ITERATIONS = mc::LS_ITERATIONS;
-  static constexpr int NGROUPS = 0;
-  static constexpr bool FRICTION_ROWS = false;
-  static __device__ __forceinline__ bool j_sup(int r, int i) { return g_topo.j_sup[r][i]; }
-  static __device__ __forceinline__ bool m_mask(int i, int j) { return g_topo.m_mask[i][j]; }
-  static __device__ __forceinline__ bool h_mask(int i, int j) { return g_topo.h_mask[i][j]; }
-  template <typename T>
-  static __device__ __forceinline__ void solve_hessian(const T (*H)[NV], const T* g, T* x,
-                                                       T (*L)[NV]) {
-    chol_solve<T, NV, false>(H, g_topo.h_mask, g_topo.h_pat, g, x, L);
-  }
+  static __device__ __forceinline__ const short* jrow_adr() { return g_lists.jrow_adr; }
+  static __device__ __forceinline__ const short* jrow_col() { return g_lists.jrow_col; }
+  static __device__ __forceinline__ const short* jcol_adr() { return g_lists.jcol_adr; }
+  static __device__ __forceinline__ const short* jcol_row() { return g_lists.jcol_row; }
+  static __device__ __forceinline__ const short* mrow_adr() { return g_lists.mrow_adr; }
+  static __device__ __forceinline__ const short* mrow_col() { return g_lists.mrow_col; }
+  static __device__ __forceinline__ const short* hrow_adr() { return g_lists.hrow_adr; }
+  static __device__ __forceinline__ const short* hrow() { return g_lists.hrow; }
+  static __device__ __forceinline__ const auto& hfac() { return g_hfac; }
+};
+
+// ---------------------------------------------------------------------------
+// The working set of one sample, in shared memory
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct StepShared {
+  // carried from step to step
+  T qp[NQ], qv[NV], ct[NU1];
+  // kept until the outputs or the solve
+  T xpos[NBODY][3], xquat[NBODY][4], subtree_com[NBODY][3], cvel[NBODY][6];
+  T cdof[NV][6];
+  T M[NV][NV];  // entries outside the mass matrix's mask are never written or read
+  T qfrc[NV], qacc[NV];
+  T con_dist[NCON1], con_pos[NCON1][3];
+  T J[NEFC1][NV], D[NEFC1], aref[NEFC1];  // J only on each row's support
+  union {
+    struct {  // the smooth dynamics: dead once M and qfrc are built
+      T xanchor[NJNT][3], xaxis[NJNT][3], xipos[NBODY][3];
+      T cinert[NBODY][36];  // becomes the composite inertia
+      T cdof_dot[NV][6], cacc[NBODY][6], cfrc[NBODY][6];
+      T F[NV][6];  // composite inertia times cdof
+    } s;
+    struct {  // the two solves, and the contact frames before the second
+      T A[NV][NV], L[NV][NV], b[NV], w[NV], y[NV];
+      T force[NEFC1], quad_w[NEFC1];
+      T con_frame[NCON1][9], con_jac[NCON1][3][NV];  // Jn, Jt1, Jt2 on the support
+    } c;
+  };
 };
 
 // ---------------------------------------------------------------------------
 // one physics step
 // ---------------------------------------------------------------------------
 
-// Advances (qp, qv) in place under ctrl ct. With out != nullptr it also
-// writes the step's outputs for sample `tid` of `B` (row-major (rows, B)).
+// Advances S.qp, S.qv under S.ct; with out != nullptr also writes the step's
+// outputs to out[0 .. N_OUT_ROWS). Every phase ends with a team sync where a
+// later phase reads what it wrote.
 template <typename T>
-__device__ __noinline__ void step_once(T* qp, T* qv, const T* ct, T* out, int tid, int B) {
+__device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* out) {
   const ModelReal<T>& R = model_real<T>();
+  const ModelScalars<T>& C = model_scalars<T>();
   const ModelTopo& tp = g_topo;
+  const TeamTables& tl = g_lists;
+  const int lane = tm.lane;
+  auto& s = S.s;
+  auto& c = S.c;
 
-  // ---- kinematics ----
-  T xpos[NBODY][3], xquat[NBODY][4], xanchor[NJNT][3], xaxis[NJNT][3];
-  v3_set(xpos[0], T(0), T(0), T(0));
-  xquat[0][0] = T(1); xquat[0][1] = T(0); xquat[0][2] = T(0); xquat[0][3] = T(0);
-  for (int b = 1; b < NBODY; ++b) {
-    const int p = tp.body_parentid[b];
-    T pos[3], quat[4], tmp[3], tq[4];
-    quat_rot(tmp, R.body_pos[b], xquat[p]);
-    v3_add(pos, xpos[p], tmp);
-    quat_mul(quat, xquat[p], R.body_quat[b]);
-    for (int k = 0; k < tp.body_jntnum[b]; ++k) {
-      const int j = tp.body_jntadr[b] + k;
-      const int qadr = tp.jnt_qposadr[j];
-      if (tp.jnt_type[j] == JNT_FREE) {
-        v3_copy(pos, qp + qadr);
-        quat_normalize(quat, qp + qadr + 3);
-        v3_copy(xanchor[j], pos);
-        v3_copy(xaxis[j], R.jnt_axis[j]);
-      } else {  // hinge
-        T anchor[3];
-        quat_rot(tmp, R.jnt_pos[j], quat);
-        v3_add(anchor, pos, tmp);
-        T angle = qp[qadr] - R.qpos0[qadr];
-        T s = sin(angle * T(0.5)), c = cos(angle * T(0.5));
-        T qloc[4] = {c, R.jnt_axis[j][0] * s, R.jnt_axis[j][1] * s, R.jnt_axis[j][2] * s};
-        quat_mul(tq, quat, qloc);
-        for (int i = 0; i < 4; ++i) quat[i] = tq[i];
-        quat_rot(tmp, R.jnt_pos[j], quat);
-        v3_sub(pos, anchor, tmp);
-        v3_copy(xanchor[j], anchor);
-        quat_rot(xaxis[j], R.jnt_axis[j], quat);
+  // ---- kinematics, one tree level a phase ----
+  if (lane == 0) {
+    v3_set(S.xpos[0], T(0), T(0), T(0));
+    S.xquat[0][0] = T(1); S.xquat[0][1] = T(0); S.xquat[0][2] = T(0); S.xquat[0][3] = T(0);
+  }
+  for (int lv = 0; lv < NLEVEL; ++lv) {
+    const int k1 = ro(tl.level_adr[lv + 1]);
+    for (int k = ro(tl.level_adr[lv]) + lane; k < k1; k += LANES) {
+      const int b = ro(tl.level_body[k]);
+      const int p = tp.body_parentid[b];
+      T ppos[3] = {T(0), T(0), T(0)}, pquat[4] = {T(1), T(0), T(0), T(0)};
+      if (p != 0) {  // the world's frame is being written in this phase
+        v3_copy(ppos, S.xpos[p]);
+        for (int i = 0; i < 4; ++i) pquat[i] = S.xquat[p][i];
       }
+      T pos[3], quat[4], tmp[3], tq[4];
+      quat_rot(tmp, R.body_pos[b], pquat);
+      v3_add(pos, ppos, tmp);
+      quat_mul(quat, pquat, R.body_quat[b]);
+      for (int kj = 0; kj < tp.body_jntnum[b]; ++kj) {
+        const int j = tp.body_jntadr[b] + kj;
+        const int qadr = tp.jnt_qposadr[j];
+        if (tp.jnt_type[j] == JNT_FREE) {
+          v3_copy(pos, S.qp + qadr);
+          quat_normalize(quat, S.qp + qadr + 3);
+          v3_copy(s.xanchor[j], pos);
+          v3_copy(s.xaxis[j], R.jnt_axis[j]);
+        } else {  // hinge
+          T anchor[3];
+          quat_rot(tmp, R.jnt_pos[j], quat);
+          v3_add(anchor, pos, tmp);
+          T angle = S.qp[qadr] - R.qpos0[qadr];
+          T sn = sin(angle * T(0.5)), cs = cos(angle * T(0.5));
+          T qloc[4] = {cs, R.jnt_axis[j][0] * sn, R.jnt_axis[j][1] * sn, R.jnt_axis[j][2] * sn};
+          quat_mul(tq, quat, qloc);
+          for (int i = 0; i < 4; ++i) quat[i] = tq[i];
+          quat_rot(tmp, R.jnt_pos[j], quat);
+          v3_sub(pos, anchor, tmp);
+          v3_copy(s.xanchor[j], anchor);
+          quat_rot(s.xaxis[j], R.jnt_axis[j], quat);
+        }
+      }
+      v3_copy(S.xpos[b], pos);
+      quat_normalize(S.xquat[b], quat);
     }
-    v3_copy(xpos[b], pos);
-    quat_normalize(xquat[b], quat);
+    tm.sync();
   }
+  if constexpr (NLEVEL == 0) tm.sync();
 
-  // ---- CoM quantities ----
-  T xipos[NBODY][3], subtree_com[NBODY][3];
-  for (int b = 0; b < NBODY; ++b) {
+  // ---- CoM: mass-weighted positions, summed children into parents ----
+  for (int b = lane; b < NBODY; b += LANES) {
     T tmp[3];
-    quat_rot(tmp, R.body_ipos[b], xquat[b]);
-    v3_add(xipos[b], xpos[b], tmp);
-    v3_scale(subtree_com[b], xipos[b], R.body_mass[b]);  // weighted sum, scaled below
+    quat_rot(tmp, R.body_ipos[b], S.xquat[b]);
+    v3_add(s.xipos[b], S.xpos[b], tmp);
+    v3_scale(S.subtree_com[b], s.xipos[b], R.body_mass[b]);
   }
-  for (int b = NBODY - 1; b > 0; --b) {
-    const int p = tp.body_parentid[b];
-    v3_add(subtree_com[p], subtree_com[p], subtree_com[b]);
+  tm.sync();
+  for (int lv = NLEVEL - 2; lv >= -1; --lv) {  // parents of level lv + 1; lv = -1 is the world
+    const int k0 = lv < 0 ? 0 : ro(tl.level_adr[lv]), k1 = lv < 0 ? 1 : ro(tl.level_adr[lv + 1]);
+    for (int k = k0 + lane; k < k1; k += LANES) {
+      const int p = lv < 0 ? 0 : ro(tl.level_body[k]);
+      for (int e = ro(tl.child_adr[p + 1]) - 1; e >= ro(tl.child_adr[p]); --e)
+        v3_add(S.subtree_com[p], S.subtree_com[p], S.subtree_com[ro(tl.child_body[e])]);
+    }
+    tm.sync();
   }
-  for (int b = 0; b < NBODY; ++b) v3_scale(subtree_com[b], subtree_com[b], R.subtree_mass_inv[b]);
+  for (int b = lane; b < NBODY; b += LANES)
+    v3_scale(S.subtree_com[b], S.subtree_com[b], R.subtree_mass_inv[b]);
+  tm.sync();
 
-  // spatial inertia of each body about its tree root's subtree CoM
-  T cinert[NBODY][36];
-  for (int b = 0; b < NBODY; ++b) {
-    T c[3], iq[4], Rm[9];
-    v3_sub(c, xipos[b], subtree_com[tp.body_rootid[b]]);
-    quat_mul(iq, xquat[b], R.body_iquat[b]);
+  // ---- spatial inertias about the tree root's CoM, and dof motion subspaces ----
+  for (int b = 1 + lane; b < NBODY; b += LANES) {
+    T cc[3], iq[4], Rm[9];
+    v3_sub(cc, s.xipos[b], S.subtree_com[tp.body_rootid[b]]);
+    quat_mul(iq, S.xquat[b], R.body_iquat[b]);
     quat_to_mat(Rm, iq);
     const T mass = R.body_mass[b];
     const T* I3 = R.body_inertia[b];
-    const T cx[3][3] = {{T(0), -c[2], c[1]}, {c[2], T(0), -c[0]}, {-c[1], c[0], T(0)}};
-    T* M6 = cinert[b];
+    const T cx[3][3] = {{T(0), -cc[2], cc[1]}, {cc[2], T(0), -cc[0]}, {-cc[1], cc[0], T(0)}};
+    T* M6 = s.cinert[b];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -190,312 +254,375 @@ __device__ __noinline__ void step_once(T* qp, T* qv, const T* ct, T* out, int ti
         M6[6 * (3 + i) + 3 + j] = i == j ? mass : T(0);
       }
   }
-
-  // dof motion subspaces about subtree_com[root]
-  T cdof[NV][6];
-  for (int j = 0; j < NJNT; ++j) {
-    const int b = tp.jnt_bodyid[j], da = tp.jnt_dofadr[j];
-    const T* o = subtree_com[tp.body_rootid[b]];
+  for (int i = lane; i < NV; i += LANES) {
+    const int j = ro(tl.dof_jnt[i]), b = tp.jnt_bodyid[j];
+    const T* o = S.subtree_com[tp.body_rootid[b]];
+    T* cd = S.cdof[i];
     if (tp.jnt_type[j] == JNT_FREE) {
-      T Rm[9], rel[3];
-      quat_to_mat(Rm, xquat[b]);
-      v3_sub(rel, o, xpos[b]);
-      for (int i = 0; i < 3; ++i) {
-        for (int x = 0; x < 6; ++x) cdof[da + i][x] = x == 3 + i ? T(1) : T(0);
-        mat_col(cdof[da + 3 + i], Rm, i);
-        v3_cross(cdof[da + 3 + i] + 3, cdof[da + 3 + i], rel);
+      const int k = i - tp.jnt_dofadr[j];
+      if (k < 3) {
+        for (int x = 0; x < 6; ++x) cd[x] = x == 3 + k ? T(1) : T(0);
+      } else {
+        T Rm[9], rel[3];
+        quat_to_mat(Rm, S.xquat[b]);
+        v3_sub(rel, o, S.xpos[b]);
+        mat_col(cd, Rm, k - 3);
+        v3_cross(cd + 3, cd, rel);
       }
     } else {  // hinge
       T rel[3];
-      v3_sub(rel, o, xanchor[j]);
-      v3_copy(cdof[da], xaxis[j]);
-      v3_cross(cdof[da] + 3, xaxis[j], rel);
+      v3_sub(rel, o, s.xanchor[j]);
+      v3_copy(cd, s.xaxis[j]);
+      v3_cross(cd + 3, s.xaxis[j], rel);
     }
   }
+  tm.sync();
 
-  // ---- com velocities ----
-  T cvel[NBODY][6], cdof_dot[NV][6];
-  for (int x = 0; x < 6; ++x) cvel[0][x] = T(0);
-  for (int b = 1; b < NBODY; ++b) {
-    T v6[6];
-    for (int x = 0; x < 6; ++x) v6[x] = cvel[tp.body_parentid[b]][x];
-    for (int k = 0; k < tp.body_jntnum[b]; ++k) {
-      const int j = tp.body_jntadr[b] + k, da = tp.jnt_dofadr[j];
-      if (tp.jnt_type[j] == JNT_FREE) {
-        // translation dofs accumulate before the rotation dofs' cross products
-        for (int i = 0; i < 3; ++i) {
-          for (int x = 0; x < 6; ++x) cdof_dot[da + i][x] = T(0);
-          for (int x = 0; x < 6; ++x) v6[x] = v6[x] + cdof[da + i][x] * qv[da + i];
+  // ---- com velocities and the RNE forward pass, one tree level a phase ----
+  for (int lv = 0; lv < NLEVEL; ++lv) {
+    const int k1 = ro(tl.level_adr[lv + 1]);
+    for (int k = ro(tl.level_adr[lv]) + lane; k < k1; k += LANES) {
+      const int b = ro(tl.level_body[k]);
+      const int p = tp.body_parentid[b];
+      T v6[6], a6[6];
+      for (int x = 0; x < 6; ++x) {
+        v6[x] = p == 0 ? T(0) : S.cvel[p][x];
+        a6[x] = p == 0 ? (x < 3 ? T(0) : -C.gravity[x - 3]) : s.cacc[p][x];
+      }
+      for (int kj = 0; kj < tp.body_jntnum[b]; ++kj) {
+        const int j = tp.body_jntadr[b] + kj, da = tp.jnt_dofadr[j];
+        if (tp.jnt_type[j] == JNT_FREE) {
+          // translation dofs accumulate before the rotation dofs' cross products
+          for (int i = 0; i < 3; ++i) {
+            for (int x = 0; x < 6; ++x) s.cdof_dot[da + i][x] = T(0);
+            for (int x = 0; x < 6; ++x) v6[x] = v6[x] + S.cdof[da + i][x] * S.qv[da + i];
+          }
+          for (int i = 0; i < 3; ++i) motion_cross(s.cdof_dot[da + 3 + i], v6, S.cdof[da + 3 + i]);
+          for (int i = 0; i < 3; ++i)
+            for (int x = 0; x < 6; ++x) v6[x] = v6[x] + S.cdof[da + 3 + i][x] * S.qv[da + 3 + i];
+        } else {
+          motion_cross(s.cdof_dot[da], v6, S.cdof[da]);
+          for (int x = 0; x < 6; ++x) v6[x] = v6[x] + S.cdof[da][x] * S.qv[da];
         }
-        for (int i = 0; i < 3; ++i) motion_cross(cdof_dot[da + 3 + i], v6, cdof[da + 3 + i]);
-        for (int i = 0; i < 3; ++i)
-          for (int x = 0; x < 6; ++x) v6[x] = v6[x] + cdof[da + 3 + i][x] * qv[da + 3 + i];
-      } else {
-        motion_cross(cdof_dot[da], v6, cdof[da]);
-        for (int x = 0; x < 6; ++x) v6[x] = v6[x] + cdof[da][x] * qv[da];
+      }
+      const int da = tp.body_dofadr[b];
+      for (int i = 0; i < tp.body_dofnum[b]; ++i)
+        for (int x = 0; x < 6; ++x) a6[x] = a6[x] + s.cdof_dot[da + i][x] * S.qv[da + i];
+      T h6[6], f6[6], fc[6];
+      m6_vec(h6, s.cinert[b], v6);
+      m6_vec(f6, s.cinert[b], a6);
+      force_cross(fc, v6, h6);
+      for (int x = 0; x < 6; ++x) {
+        S.cvel[b][x] = v6[x];
+        s.cacc[b][x] = a6[x];
+        s.cfrc[b][x] = f6[x] + fc[x];
       }
     }
-    for (int x = 0; x < 6; ++x) cvel[b][x] = v6[x];
+    tm.sync();
   }
 
-  // ---- RNE bias ----
-  T cfrc[NBODY][6];
-  {
-    T cacc[NBODY][6];
-    for (int x = 0; x < 3; ++x) { cacc[0][x] = T(0); cacc[0][3 + x] = -R.gravity[x]; }
-    for (int b = 1; b < NBODY; ++b) {
-      const int da = tp.body_dofadr[b];
-      for (int x = 0; x < 6; ++x) cacc[b][x] = cacc[tp.body_parentid[b]][x];
-      for (int i = 0; i < tp.body_dofnum[b]; ++i)
-        for (int x = 0; x < 6; ++x) cacc[b][x] = cacc[b][x] + cdof_dot[da + i][x] * qv[da + i];
+  // ---- RNE backward sum and composite inertias: children into parents,
+  // deepest parents first (the world takes nothing) ----
+  for (int lv = NLEVEL - 2; lv >= 0; --lv) {
+    const int k0 = ro(tl.level_adr[lv]), n = (ro(tl.level_adr[lv + 1]) - k0) * 42;
+    for (int t = lane; t < n; t += LANES) {
+      const int p = ro(tl.level_body[k0 + t / 42]), x = t % 42;
+      T* dst = x < 6 ? &s.cfrc[p][x] : &s.cinert[p][x - 6];
+      T acc = *dst;
+      for (int e = ro(tl.child_adr[p + 1]) - 1; e >= ro(tl.child_adr[p]); --e) {
+        const int ch = ro(tl.child_body[e]);
+        acc = acc + (x < 6 ? s.cfrc[ch][x] : s.cinert[ch][x - 6]);
+      }
+      *dst = acc;
     }
-    for (int b = 1; b < NBODY; ++b) {
-      T h6[6], f6[6], fc[6];
-      m6_vec(h6, cinert[b], cvel[b]);
-      m6_vec(f6, cinert[b], cacc[b]);
-      force_cross(fc, cvel[b], h6);
-      for (int x = 0; x < 6; ++x) cfrc[b][x] = f6[x] + fc[x];
+    tm.sync();
+  }
+
+  // ---- bias, passive and actuation forces, and the CRB products ----
+  for (int i = lane; i < NV; i += LANES) {
+    const int b = tp.dof_bodyid[i];
+    const T bias = v6_dot(S.cdof[i], s.cfrc[b]);
+    m6_vec(s.F[i], s.cinert[b], S.cdof[i]);
+    T f = -R.dof_damping[i] * S.qv[i] - bias;
+    const int e1 = ro(tl.dact_adr[i + 1]);
+    for (int e = ro(tl.dact_adr[i]); e < e1; ++e) {
+      const int u = ro(tl.dact[e]);
+      T cu = S.ct[u];
+      if (tp.act_ctrllimited[u]) cu = tclip(cu, R.act_ctrlrange[u][0], R.act_ctrlrange[u][1]);
+      T force = R.act_gain[u] * cu;
+      if (tp.act_affine[u]) {
+        T length = S.qp[tp.act_qposadr[u]] * R.act_gear[u];
+        T vel = S.qv[i] * R.act_gear[u];
+        force = force + (R.act_bias[u][0] + R.act_bias[u][1] * length + R.act_bias[u][2] * vel);
+      }
+      if (tp.act_forcelimited[u]) force = tclip(force, R.act_forcerange[u][0], R.act_forcerange[u][1]);
+      f = f + force * R.act_gear[u];
     }
+    S.qfrc[i] = f;
   }
-  for (int b = NBODY - 1; b > 1; --b) {
-    const int p = tp.body_parentid[b];
-    if (p > 0)
-      for (int x = 0; x < 6; ++x) cfrc[p][x] = cfrc[p][x] + cfrc[b][x];
-  }
-  T qfrc_smooth[NV];  // holds the bias first
-  for (int i = 0; i < NV; ++i) qfrc_smooth[i] = v6_dot(cdof[i], cfrc[tp.dof_bodyid[i]]);
+  tm.sync();
 
-  // ---- CRB mass matrix (cinert becomes the composite inertia) ----
-  for (int b = NBODY - 1; b > 0; --b) {
-    const int p = tp.body_parentid[b];
-    if (p > 0)
-      for (int x = 0; x < 36; ++x) cinert[p][x] = cinert[p][x] + cinert[b][x];
+  // ---- CRB mass matrix, one lane a masked lower entry ----
+  for (int e = lane; e < MC_N_ment; e += LANES) {
+    const int ij = ro(tl.ment[e]), i = ij >> 8, j = ij & 255;
+    T val = v6_dot(s.F[i], S.cdof[j]);
+    if (i == j) val = val + R.dof_armature[i];
+    S.M[i][j] = val;
+    S.M[j][i] = val;
   }
-  T M[NV][NV];
-  for (int i = 0; i < NV; ++i) {
-    T F[6];
-    m6_vec(F, cinert[tp.dof_bodyid[i]], cdof[i]);
-    for (int j = 0; j <= i; ++j) {
-      T val = tp.m_mask[i][j] ? v6_dot(F, cdof[j]) : T(0);
-      M[i][j] = val;
-      M[j][i] = val;
-    }
-    M[i][i] = M[i][i] + R.dof_armature[i];
+  tm.sync();
+
+  // ---- qacc_smooth = M^-1 qfrc ----
+  for (int e = lane; e < MC_N_mf_ent; e += LANES) {
+    const int rc = ro(g_mfac.ent[e]), r = rc >> 8, cl = rc & 255;
+    c.A[r][cl] = ro(g_mfac.ent_inm[e]) ? S.M[NV - 1 - cl][NV - 1 - r] : T(0);
   }
+  for (int i = lane; i < NV; i += LANES) c.b[NV - 1 - i] = S.qfrc[i];
+  tm.sync();
+  chol_solve_team<T, NV>(tm, g_mfac, c.A, c.L, c.b, c.w, c.y);
+  for (int i = lane; i < NV; i += LANES) S.qacc[i] = c.y[NV - 1 - i];
 
-  // ---- passive + actuation ----
-  for (int i = 0; i < NV; ++i) qfrc_smooth[i] = -R.dof_damping[i] * qv[i] - qfrc_smooth[i];
-  for (int u = 0; u < NU; ++u) {
-    T c = ct[u];
-    if (tp.act_ctrllimited[u]) c = tclip(c, R.act_ctrlrange[u][0], R.act_ctrlrange[u][1]);
-    T force = R.act_gain[u] * c;
-    const int i = tp.act_dofadr[u];
-    if (tp.act_affine[u]) {
-      T length = qp[tp.act_qposadr[u]] * R.act_gear[u];
-      T vel = qv[i] * R.act_gear[u];
-      force = force + (R.act_bias[u][0] + R.act_bias[u][1] * length + R.act_bias[u][2] * vel);
-    }
-    if (tp.act_forcelimited[u]) force = tclip(force, R.act_forcerange[u][0], R.act_forcerange[u][1]);
-    qfrc_smooth[i] = qfrc_smooth[i] + force * R.act_gear[u];
-  }
-
-  T qacc[NV];
-  T L[NV][NV], H[NV][NV];
-  chol_solve<T, NV, false>(M, tp.m_mask, tp.m_pat, qfrc_smooth, qacc, L);  // qacc_smooth
-
-  // ---- collision: plane (g1) against sphere (g2) ----
-  T con_dist[NCON1], con_pos[NCON1][3], con_frame[NCON1][9];
-  for (int pr = 0; pr < NPAIR; ++pr) {
+  // ---- collision: plane (g1) against sphere (g2), one lane a pair ----
+  for (int pr = lane; pr < NPAIR; pr += LANES) {
     const int g1 = tp.pair_g1[pr], g2 = tp.pair_g2[pr], slot = tp.pair_conadr[pr];
     const int b1 = tp.cgeom_bodyid[g1], b2 = tp.cgeom_bodyid[g2];
     T p1[3], p2[3], tmp[3], gq[4], R1[9], pn[3], rel[3];
-    quat_rot(tmp, R.cgeom_pos[g1], xquat[b1]);
-    v3_add(p1, xpos[b1], tmp);
-    quat_mul(gq, xquat[b1], R.cgeom_quat[g1]);
+    quat_rot(tmp, R.cgeom_pos[g1], S.xquat[b1]);
+    v3_add(p1, S.xpos[b1], tmp);
+    quat_mul(gq, S.xquat[b1], R.cgeom_quat[g1]);
     quat_to_mat(R1, gq);
-    quat_rot(tmp, R.cgeom_pos[g2], xquat[b2]);
-    v3_add(p2, xpos[b2], tmp);
+    quat_rot(tmp, R.cgeom_pos[g2], S.xquat[b2]);
+    v3_add(p2, S.xpos[b2], tmp);
     mat_col(pn, R1, 2);
     const T r = R.cgeom_size[g2][0];
     v3_sub(rel, p2, p1);
     T dist = v3_dot(pn, rel) - r;
     v3_scale(tmp, pn, r + T(0.5) * dist);
-    v3_sub(con_pos[slot], p2, tmp);
-    con_dist[slot] = dist;
-    make_frame(con_frame[slot], pn);
+    v3_sub(S.con_pos[slot], p2, tmp);
+    S.con_dist[slot] = dist;
+    make_frame(c.con_frame[slot], pn);
   }
+  tm.sync();
 
-  // ---- constraint rows: joint limits, then four pyramid facets a contact ----
-  T J[NEFC1][NV], D[NEFC1], aref[NEFC1];
-  const T timestep = R.timestep;
-  ROW_LOOP
-  for (int l = 0; l < NLIMIT; ++l) {
-    const int j = tp.limit_jnt[l];
-    const int dadr = tp.jnt_dofadr[j];
-    T q = qp[tp.jnt_qposadr[j]];
-    T dist_lo = q - R.jnt_range[j][0], dist_hi = R.jnt_range[j][1] - q;
-    bool use_lo = dist_lo < dist_hi;
-    T dist = use_lo ? dist_lo : dist_hi;
-    T sign = use_lo ? T(1) : T(-1);
-    T pos = dist - R.jnt_margin[j];
-    T active = dist < R.jnt_margin[j] ? T(1) : T(0);
-    T ar;
-    T imp = kbi(R.jnt_solref[j], R.jnt_solimp[j], timestep, pos, sign * qv[dadr], &ar);
-    T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[dadr], T(MJ_MINVAL));
-    J[l][dadr] = sign * active;
-    D[l] = active / Rr;
-    aref[l] = ar * active;
-  }
-  for (int slot = 0; slot < NCON; ++slot) {
+  // ---- translational Jacobian difference (body 2 minus body 1) along each
+  // contact's frame, one lane a contact-dof pair ----
+  for (int e = lane; e < MC_N_cpair; e += LANES) {
+    const int v = ro(tl.cpair[e]), slot = v >> 10, i = v & 255;
+    const bool in1 = (v >> 8) & 1, in2 = (v >> 9) & 1;
     const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
-    const int row0 = NLIMIT + 4 * slot;
-    const T* frame = con_frame[slot];
-    T pos = con_dist[slot] - R.con_includemargin[slot];
-    T active = con_dist[slot] < R.con_includemargin[slot] ? T(1) : T(0);
-    T off1[3], off2[3];
-    v3_sub(off1, con_pos[slot], subtree_com[tp.body_rootid[b1]]);
-    v3_sub(off2, con_pos[slot], subtree_com[tp.body_rootid[b2]]);
-    T unused;
-    T imp = kbi(R.con_solref[slot], R.con_solimp[slot], timestep, pos, T(0), &unused);
-    const T invw_t = R.body_invweight0[b1][0] + R.body_invweight0[b2][0];
-
-    // translational Jacobian difference (body 2 minus body 1) along the frame
-    T Jn[NV], Jt[2][NV];
-    for (int i = 0; i < NV; ++i) {
-      const bool in1 = tp.chain_mask[b1][i], in2 = tp.chain_mask[b2][i];
-      if (!in1 && !in2) continue;
-      T dj[3] = {T(0), T(0), T(0)}, cr[3], jp[3];
-      if (in2) {
-        v3_cross(cr, cdof[i], off2);
-        v3_add(dj, cdof[i] + 3, cr);
-      }
-      if (in1) {
-        v3_cross(cr, cdof[i], off1);
-        v3_add(jp, cdof[i] + 3, cr);
-        if (in2) { v3_sub(dj, dj, jp); } else { v3_set(dj, -jp[0], -jp[1], -jp[2]); }
-      }
-      Jn[i] = v3_dot(dj, frame);
-      Jt[0][i] = v3_dot(dj, frame + 3);
-      Jt[1][i] = v3_dot(dj, frame + 6);
+    const T* cd = S.cdof[i];
+    T dj[3] = {T(0), T(0), T(0)}, cr[3], jp[3], off[3];
+    if (in2) {
+      v3_sub(off, S.con_pos[slot], S.subtree_com[tp.body_rootid[b2]]);
+      v3_cross(cr, cd, off);
+      v3_add(dj, cd + 3, cr);
     }
-    for (int kdir = 0; kdir < 2; ++kdir) {
+    if (in1) {
+      v3_sub(off, S.con_pos[slot], S.subtree_com[tp.body_rootid[b1]]);
+      v3_cross(cr, cd, off);
+      v3_add(jp, cd + 3, cr);
+      if (in2) { v3_sub(dj, dj, jp); } else { v3_set(dj, -jp[0], -jp[1], -jp[2]); }
+    }
+    const T* frame = c.con_frame[slot];
+    for (int a = 0; a < 3; ++a) c.con_jac[slot][a][i] = v3_dot(dj, frame + 3 * a);
+  }
+  tm.sync();
+
+  // ---- constraint rows, one lane a row: joint limits, then four pyramid
+  // facets a contact ----
+  const T timestep = C.timestep;
+  for (int r = lane; r < NEFC; r += LANES) {
+    if (r < NLIMIT) {
+      const int j = tp.limit_jnt[r];
+      const int dadr = tp.jnt_dofadr[j];
+      T q = S.qp[tp.jnt_qposadr[j]];
+      T dist_lo = q - R.jnt_range[j][0], dist_hi = R.jnt_range[j][1] - q;
+      bool use_lo = dist_lo < dist_hi;
+      T dist = use_lo ? dist_lo : dist_hi;
+      T sign = use_lo ? T(1) : T(-1);
+      T pos = dist - R.jnt_margin[j];
+      T active = dist < R.jnt_margin[j] ? T(1) : T(0);
+      T imp = impedance(R.jnt_solimp[j], pos);
+      T ar = ref_acc(R.jnt_solref[j], R.jnt_solimp[j], timestep, imp, pos, sign * S.qv[dadr]);
+      T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[dadr], T(MJ_MINVAL));
+      S.J[r][dadr] = sign * active;
+      S.D[r] = active / Rr;
+      S.aref[r] = ar * active;
+    } else {
+      const int slot = (r - NLIMIT) >> 2, facet = (r - NLIMIT) & 3;
+      const int kdir = facet >> 1;
+      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
+      T pos = S.con_dist[slot] - R.con_includemargin[slot];
+      T active = S.con_dist[slot] < R.con_includemargin[slot] ? T(1) : T(0);
+      T imp = impedance(R.con_solimp[slot], pos);
+      const T invw_t = R.body_invweight0[b1][0] + R.body_invweight0[b2][0];
       const T mu = R.con_friction[slot][kdir];
       const T invw_fac = invw_t + mu * mu * invw_t;
       T Rr = tmax((T(1) - imp) / imp * invw_fac * T(2) * mu * mu, T(MJ_MINVAL));
-      for (int sg = 0; sg < 2; ++sg) {
-        const int r = row0 + 2 * kdir + sg;
-        const T smu = sg == 0 ? mu : -mu;
-        T vel = T(0);
-        bool first = true;
-        for (int i = 0; i < NV; ++i) {
-          if (!tp.j_sup[r][i]) continue;
-          T e = Jn[i] + smu * Jt[kdir][i];
-          J[r][i] = e * active;
-          vel = first ? e * qv[i] : vel + e * qv[i];
-          first = false;
-        }
-        T ar;
-        kbi(R.con_solref[slot], R.con_solimp[slot], timestep, pos, vel, &ar);
-        D[r] = active / Rr;
-        aref[r] = ar * active;
+      const T smu = (facet & 1) == 0 ? mu : -mu;
+      const T* Jn = c.con_jac[slot][0];
+      const T* Jt = c.con_jac[slot][1 + kdir];
+      T vel = T(0);
+      const int e1 = ro(tl.jrow_adr[r + 1]);
+      for (int e = ro(tl.jrow_adr[r]); e < e1; ++e) {
+        const int i = ro(tl.jrow_col[e]);
+        T ej = Jn[i] + smu * Jt[i];
+        S.J[r][i] = ej * active;
+        vel = vel + ej * S.qv[i];
       }
+      T ar = ref_acc(R.con_solref[slot], R.con_solimp[slot], timestep, imp, pos, vel);
+      S.D[r] = active / Rr;
+      S.aref[r] = ar * active;
     }
   }
+  tm.sync();
 
-  // ---- Newton solve ----
-  if (NEFC > 0) {
-    const RowData<T> rows = {D, aref, nullptr, nullptr};
-    newton_solve<EnginePolicy, T>(LocalMat<T, NV>{J}, rows, LocalMat<T, NV>{M}, qacc, H, L,
-                                  R.tolerance, (T*)nullptr);
-  }
+  // ---- Newton solve: qacc_smooth -> qacc ----
+  if constexpr (NEFC > 0)
+    newton_solve_team<EnginePolicy, T>(tm, S.J, S.D, S.aref, S.M, S.qacc, c.A, c.L, c.b, c.w,
+                                       c.y, c.force, c.quad_w, C.tolerance);
 
   // ---- outputs that belong to the pre-step state ----
   if (out != nullptr) {
-    T* o = out + tid;
-    for (int i = 0; i < NV; ++i) o[(size_t)(O_QACC + i) * B] = qacc[i];
-    for (int s = 0; s < NSITE; ++s) {
-      const int b = tp.site_bodyid[s];
+    for (int i = lane; i < NV; i += LANES) out[O_QACC + i] = S.qacc[i];
+    for (int st = lane; st < NSITE; st += LANES) {
+      const int b = tp.site_bodyid[st];
       T tmp[3], sx[3], sq[4], Rs[9];
-      quat_rot(tmp, R.site_pos[s], xquat[b]);
-      v3_add(sx, xpos[b], tmp);
-      quat_mul(sq, xquat[b], R.site_quat[s]);
+      quat_rot(tmp, R.site_pos[st], S.xquat[b]);
+      v3_add(sx, S.xpos[b], tmp);
+      quat_mul(sq, S.xquat[b], R.site_quat[st]);
       quat_to_mat(Rs, sq);
-      for (int i = 0; i < 3; ++i) o[(size_t)(O_SITE_XPOS + 3 * s + i) * B] = sx[i];
-      for (int i = 0; i < 9; ++i) o[(size_t)(O_SITE_XMAT + 9 * s + i) * B] = Rs[i];
+      for (int i = 0; i < 3; ++i) out[O_SITE_XPOS + 3 * st + i] = sx[i];
+      for (int i = 0; i < 9; ++i) out[O_SITE_XMAT + 9 * st + i] = Rs[i];
     }
-    if (NSITE == 0) {
-      o[(size_t)O_SITE_XPOS * B] = T(0);
-      o[(size_t)O_SITE_XMAT * B] = T(0);
+    if (NSITE == 0 && lane == 0) {
+      out[O_SITE_XPOS] = T(0);
+      out[O_SITE_XMAT] = T(0);
     }
-    for (int b = 1; b < NBODY; ++b) {
+    for (int b = 1 + lane; b < NBODY; b += LANES) {
       T off[3], cr[3];
-      v3_sub(off, xpos[b], subtree_com[tp.body_rootid[b]]);
-      v3_cross(cr, cvel[b], off);
+      v3_sub(off, S.xpos[b], S.subtree_com[tp.body_rootid[b]]);
+      v3_cross(cr, S.cvel[b], off);
       for (int i = 0; i < 3; ++i) {
-        o[(size_t)(O_XPOS + 3 * (b - 1) + i) * B] = xpos[b][i];
-        o[(size_t)(O_XDVEL + 3 * (b - 1) + i) * B] = cvel[b][3 + i] + cr[i];
-        o[(size_t)(O_XDANG + 3 * (b - 1) + i) * B] = cvel[b][i];
+        out[O_XPOS + 3 * (b - 1) + i] = S.xpos[b][i];
+        out[O_XDVEL + 3 * (b - 1) + i] = S.cvel[b][3 + i] + cr[i];
+        out[O_XDANG + 3 * (b - 1) + i] = S.cvel[b][i];
       }
-      for (int i = 0; i < 4; ++i) o[(size_t)(O_XROT + 4 * (b - 1) + i) * B] = xquat[b][i];
+      for (int i = 0; i < 4; ++i) out[O_XROT + 4 * (b - 1) + i] = S.xquat[b][i];
     }
-    for (int s = 0; s < NCON; ++s) {
-      o[(size_t)(O_CDIST + s) * B] = con_dist[s];
-      for (int i = 0; i < 3; ++i) o[(size_t)(O_CPOS + 3 * s + i) * B] = con_pos[s][i];
+    for (int st = lane; st < NCON; st += LANES) {
+      out[O_CDIST + st] = S.con_dist[st];
+      for (int i = 0; i < 3; ++i) out[O_CPOS + 3 * st + i] = S.con_pos[st][i];
     }
-    if (NCON == 0)
-      for (int i = 0; i < 4; ++i) o[(size_t)(O_CDIST + i) * B] = T(0);
+    if (NCON == 0 && lane == 0)
+      for (int i = 0; i < 4; ++i) out[O_CDIST + i] = T(0);
   }
 
   // ---- integrate (semi-implicit Euler) ----
   const T h = timestep;
-  for (int i = 0; i < NV; ++i) qv[i] = qv[i] + h * qacc[i];
-  for (int j = 0; j < NJNT; ++j) {
+  if constexpr (NEFC == 0) tm.sync();  // qacc was written by other lanes
+  for (int i = lane; i < NV; i += LANES) S.qv[i] = S.qv[i] + h * S.qacc[i];
+  tm.sync();
+  for (int j = lane; j < NJNT; j += LANES) {
     const int qadr = tp.jnt_qposadr[j], dadr = tp.jnt_dofadr[j];
+    T* qp = S.qp;
     if (tp.jnt_type[j] == JNT_FREE) {
-      for (int i = 0; i < 3; ++i) qp[qadr + i] = qp[qadr + i] + h * qv[dadr + i];
-      const T* omega = qv + dadr + 3;
+      for (int i = 0; i < 3; ++i) qp[qadr + i] = qp[qadr + i] + h * S.qv[dadr + i];
+      const T* omega = S.qv + dadr + 3;
       T angle = v3_norm(omega) * h;
       T axis[3];
       v3_scale(axis, omega, T(1) / v3_norm(omega));
-      T s = sin(angle * T(0.5)), c = cos(angle * T(0.5));
-      T dq[4] = {c, axis[0] * s, axis[1] * s, axis[2] * s}, qn[4];
+      T sn = sin(angle * T(0.5)), cs = cos(angle * T(0.5));
+      T dq[4] = {cs, axis[0] * sn, axis[1] * sn, axis[2] * sn}, qn[4];
       quat_mul(qn, qp + qadr + 3, dq);
       quat_normalize(qp + qadr + 3, qn);
     } else {
-      qp[qadr] = qp[qadr] + h * qv[dadr];
+      qp[qadr] = qp[qadr] + h * S.qv[dadr];
     }
   }
+  tm.sync();
 
   if (out != nullptr) {
-    T* o = out + tid;
-    for (int i = 0; i < NQ; ++i) o[(size_t)(O_QPOS + i) * B] = qp[i];
-    for (int i = 0; i < NV; ++i) o[(size_t)(O_QVEL + i) * B] = qv[i];
+    for (int i = lane; i < NQ; i += LANES) out[O_QPOS + i] = S.qp[i];
+    for (int i = lane; i < NV; i += LANES) out[O_QVEL + i] = S.qv[i];
   }
 }
 
-// in: (N_IN_ROWS, B) rows qpos, qvel, ctrl; out: (N_OUT_ROWS, B)
+// One sample's launch: in holds its NQ+NV+NU inputs, out receives its
+// N_OUT_ROWS outputs (rows of the sample-major (B, rows) arrays).
 template <typename T>
-__global__ void engine_step_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
-                                   int n_steps) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= B) return;
-  T qp[NQ], qv[NV], ct[NU1];
-  for (int i = 0; i < NQ; ++i) qp[i] = in[(size_t)i * B + tid];
-  for (int i = 0; i < NV; ++i) qv[i] = in[(size_t)(NQ + i) * B + tid];
-  for (int i = 0; i < NU; ++i) ct[i] = in[(size_t)(NQ + NV + i) * B + tid];
-  for (int s = 0; s < n_steps - 1; ++s) step_once<T>(qp, qv, ct, nullptr, tid, B);
-  step_once<T>(qp, qv, ct, out, tid, B);
+__device__ __forceinline__ void engine_step_team(const Team tm, StepShared<T>& S,
+                                                 const T* __restrict__ in, T* __restrict__ out,
+                                                 int n_steps) {
+  for (int k = tm.lane; k < N_IN_ROWS; k += LANES) {
+    const T v = in[k];
+    if (k < NQ) S.qp[k] = v;
+    else if (k < NQ + NV) S.qv[k - NQ] = v;
+    else S.ct[k - NQ - NV] = v;
+  }
+  tm.sync();
+  for (int st = 0; st < n_steps; ++st) step_once<T>(tm, S, st == n_steps - 1 ? out : nullptr);
 }
 
-constexpr int THREADS_PER_BLOCK = 32;
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+constexpr int SAMPLES_PER_BLOCK = 4;
+constexpr int THREADS = LANES * SAMPLES_PER_BLOCK;
+
+// a team's share of the block's dynamic shared memory, 16-byte aligned
+template <typename T>
+struct TeamBytes { static constexpr int value = (int)((sizeof(StepShared<T>) + 15) / 16 * 16); };
+
+// blocks an SM should hold: float32 fits four by shared memory, float64 two
+template <typename T>
+struct MinBlocks { static constexpr int value = sizeof(T) == 4 ? 4 : 2; };
+
+// in: (B, N_IN_ROWS) rows qpos, qvel, ctrl; out: (B, N_OUT_ROWS)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
+    engine_step_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int n_steps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int team = threadIdx.x / LANES;
+  const int sample = blockIdx.x * SAMPLES_PER_BLOCK + team;
+  if (sample >= B) return;  // the whole team leaves together
+  const unsigned mask =
+      LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u) << (threadIdx.x % 32 / LANES * LANES);
+  StepShared<T>& S = *reinterpret_cast<StepShared<T>*>(smem + team * TeamBytes<T>::value);
+  engine_step_team<T>(Team{(int)(threadIdx.x % LANES), mask}, S, in + (size_t)sample * N_IN_ROWS,
+                      out + (size_t)sample * N_OUT_ROWS, n_steps);
+}
+
+// more than 48 KB of dynamic shared memory needs the kernel's consent, once
+template <typename T>
+static cudaError_t allow_shared() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      engine_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SAMPLES_PER_BLOCK * TeamBytes<T>::value);
+  return err;
+}
 
 template <typename T>
 static int launch(const void* in, void* out, int B, int n_steps, void* stream) {
   if (B <= 0 || n_steps < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (B + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
-  engine_step_kernel<T><<<blocks, THREADS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, B, n_steps);
+  const cudaError_t err = allow_shared<T>();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
+  engine_step_kernel<T><<<blocks, THREADS, SAMPLES_PER_BLOCK * TeamBytes<T>::value,
+                          (cudaStream_t)stream>>>((const T*)in, (T*)out, B, n_steps);
   return (int)cudaGetLastError();
+}
+
+// samples (teams) an SM holds at once, or minus a CUDA error code
+template <typename T>
+static int teams_per_sm() {
+  cudaError_t err = allow_shared<T>();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, engine_step_kernel<T>, THREADS,
+                                                        SAMPLES_PER_BLOCK * TeamBytes<T>::value);
+  return err == cudaSuccess ? blocks * SAMPLES_PER_BLOCK : -(int)err;
 }
 
 extern "C" {
@@ -507,4 +634,11 @@ int engine_step_f64(const void* in, void* out, int B, int n_steps, void* stream)
 }
 int engine_in_rows() { return N_IN_ROWS; }
 int engine_out_rows() { return N_OUT_ROWS; }
+// the packed arrays are (B, rows): one contiguous row a sample
+int engine_sample_major() { return 1; }
+int engine_lanes() { return LANES; }
+int engine_team_bytes_f32() { return TeamBytes<float>::value; }
+int engine_team_bytes_f64() { return TeamBytes<double>::value; }
+int engine_teams_per_sm_f32() { return teams_per_sm<float>(); }
+int engine_teams_per_sm_f64() { return teams_per_sm<double>(); }
 }

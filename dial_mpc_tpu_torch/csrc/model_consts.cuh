@@ -1,11 +1,16 @@
-// Model constants of the step kernel, in constant memory.
+// Model constants of the step kernel.
 //
 // "model_constants.h" is generated at build time from the loaded model
 // (engine_cuda.py::render_constants_header): it defines the sizes below as
 // MC_* integer macros and one brace-initialiser macro per field, named
 // MCI_<field>. Everything else about the kernel is written here by hand.
-// Every thread of a warp reads the same constant at the same time, so these
-// reads are broadcasts from the constant cache.
+//
+// Where the constants live follows how a team reads them. Lanes of a team
+// index bodies, dofs, rows and list entries of their own, so the tables and
+// the per-body reals are in global memory (read-only, L1-cached): the constant
+// cache would serialise a warp whose lanes read different addresses. The few
+// values every lane reads at once (timestep, tolerance, gravity) are in
+// constant memory, where such a read is a broadcast.
 #pragma once
 
 #include "model_constants.h"
@@ -13,13 +18,13 @@
 namespace mc {
 constexpr int NQ = MC_NQ, NV = MC_NV, NU = MC_NU, NBODY = MC_NBODY, NJNT = MC_NJNT;
 constexpr int NSITE = MC_NSITE, NCON = MC_NCON, NPAIR = MC_NPAIR, NCGEOM = MC_NCGEOM;
-constexpr int NLIMIT = MC_NLIMIT, NEFC = MC_NEFC;
+constexpr int NLIMIT = MC_NLIMIT, NEFC = MC_NEFC, NLEVEL = MC_NLEVEL;
 constexpr int ITERATIONS = MC_ITERATIONS, LS_ITERATIONS = MC_LS_ITERATIONS;
 // arrays of a size that may be zero get one unused element
-constexpr int NSITE1 = NSITE > 0 ? NSITE : 1, NCON1 = NCON > 0 ? NCON : 1;
-constexpr int NPAIR1 = NPAIR > 0 ? NPAIR : 1, NCGEOM1 = NCGEOM > 0 ? NCGEOM : 1;
-constexpr int NLIMIT1 = NLIMIT > 0 ? NLIMIT : 1, NEFC1 = NEFC > 0 ? NEFC : 1;
-constexpr int NU1 = NU > 0 ? NU : 1;
+constexpr int at_least_1(int n) { return n > 0 ? n : 1; }
+constexpr int NSITE1 = at_least_1(NSITE), NCON1 = at_least_1(NCON);
+constexpr int NPAIR1 = at_least_1(NPAIR), NCGEOM1 = at_least_1(NCGEOM);
+constexpr int NLIMIT1 = at_least_1(NLIMIT), NEFC1 = at_least_1(NEFC), NU1 = at_least_1(NU);
 
 // output rows, in the order the wrapper splits them
 constexpr int O_QPOS = 0;
@@ -39,7 +44,7 @@ constexpr int N_IN_ROWS = NQ + NV + NU;
 
 enum { JNT_FREE = 0, JNT_BALL = 1, JNT_SLIDE = 2, JNT_HINGE = 3 };
 
-// Tree topology, index tables and the static sparsity patterns.
+// Tree topology and index tables.
 struct ModelTopo {
   int body_parentid[mc::NBODY], body_rootid[mc::NBODY];
   int body_jntadr[mc::NBODY], body_jntnum[mc::NBODY];
@@ -52,19 +57,53 @@ struct ModelTopo {
   int pair_g1[mc::NPAIR1], pair_g2[mc::NPAIR1], pair_conadr[mc::NPAIR1];
   int con_body1[mc::NCON1], con_body2[mc::NCON1];
   int limit_jnt[mc::NLIMIT1];
-  int act_dofadr[mc::NU1], act_qposadr[mc::NU1], act_affine[mc::NU1];
+  int act_qposadr[mc::NU1], act_affine[mc::NU1];
   int act_ctrllimited[mc::NU1], act_forcelimited[mc::NU1];
-  // chain_mask[b][i]: dof i lies on the chain from the world to body b
-  unsigned char chain_mask[mc::NBODY][mc::NV];
-  // m_mask: tree sparsity of the mass matrix; h_mask: of the Newton Hessian
-  // (m_mask plus the outer product of every constraint row's support)
-  unsigned char m_mask[mc::NV][mc::NV], h_mask[mc::NV][mc::NV];
-  // the same two patterns in elimination order (children first: dof nv-1-i
-  // is eliminated i-th), closed under the fill-in that order implies
-  unsigned char m_pat[mc::NV][mc::NV], h_pat[mc::NV][mc::NV];
-  // j_sup[r][i]: constraint row r can be non-zero at dof i
-  unsigned char j_sup[mc::NEFC1][mc::NV];
 };
+
+// The lists a team's lanes walk (engine_cuda.team_tables). A list xs with
+// offsets xs_adr holds the entries of item k at xs[xs_adr[k] .. xs_adr[k+1]).
+// Matrix entries are packed row << 8 | column; the factor schedules are in
+// elimination order (dof nv-1-e is eliminated e-th, children first).
+template <int NENT, int NCOL, int NUPD, int NBACK, int MAXCOL_, int MAXUPD_, int MAXBACK_>
+struct FactorSchedule {
+  // list lengths, and the longest column, update list and row
+  static constexpr int NCOL_ALL = NCOL, NUPD_ALL = NUPD, NBACK_ALL = NBACK;
+  static constexpr int MAXCOL = MAXCOL_, MAXUPD = MAXUPD_, MAXBACK = MAXBACK_;
+  short ent[NENT];      // the pattern's lower entries (fill included)
+  short ent_inm[NENT];  // 1 where the entry lies in the factored matrix's mask
+  short col_adr[mc::NV + 1], col[NCOL];  // column c: rows below the diagonal
+  // column c: trailing updates A[r][k] -= L[r][c] L[k][c]
+  short upd_adr[mc::NV + 1], upd[NUPD];
+  short back_adr[mc::NV + 1], back[NBACK];  // row k: columns left of the diagonal
+};
+#define MC_FACTOR(p)                                                                  \
+  FactorSchedule<mc::at_least_1(MC_N_##p##_ent), mc::at_least_1(MC_N_##p##_col),      \
+                 mc::at_least_1(MC_N_##p##_upd), mc::at_least_1(MC_N_##p##_back),     \
+                 MC_##p##_MAXCOL, MC_##p##_MAXUPD, MC_##p##_MAXBACK>
+#define MC_LIST(name) short name[mc::at_least_1(MC_N_##name)]
+struct TeamTables {
+  MC_LIST(level_adr);  // bodies of depth d + 1 (the world has depth 0)
+  MC_LIST(level_body);
+  MC_LIST(child_adr);  // children of each body, ascending
+  MC_LIST(child_body);
+  MC_LIST(dof_jnt);
+  MC_LIST(dact_adr);  // actuators of each dof
+  MC_LIST(dact);
+  MC_LIST(ment);      // masked lower entries (i, j <= i) of M, dof order
+  MC_LIST(mrow_adr);  // M's symmetric rows
+  MC_LIST(mrow_col);
+  MC_LIST(jrow_adr);  // the dofs each constraint row can reach
+  MC_LIST(jrow_col);
+  MC_LIST(jcol_adr);  // the rows that can reach each dof
+  MC_LIST(jcol_row);
+  // contact-dof pairs: slot << 10 | side << 8 | dof, side bit 0 for body 1's
+  // chain, bit 1 for body 2's
+  MC_LIST(cpair);
+  MC_LIST(hrow_adr);  // rows that reach both dofs of each Hessian factor entry
+  MC_LIST(hrow);
+};
+#undef MC_LIST
 
 // Real-valued constants, stored once for each compute type.
 template <typename T>
@@ -84,20 +123,37 @@ struct ModelReal {
   T act_ctrlrange[mc::NU1][2], act_forcerange[mc::NU1][2];
   T con_friction[mc::NCON1][5], con_solref[mc::NCON1][2], con_solimp[mc::NCON1][5];
   T con_includemargin[mc::NCON1];
+};
+
+// What every lane reads at the same time.
+template <typename T>
+struct ModelScalars {
   T gravity[3];
   T timestep, tolerance;
 };
 
-__constant__ ModelTopo g_topo = {
+__device__ const ModelTopo g_topo = {
     MCI_body_parentid, MCI_body_rootid, MCI_body_jntadr, MCI_body_jntnum,
     MCI_body_dofadr, MCI_body_dofnum,
     MCI_jnt_type, MCI_jnt_qposadr, MCI_jnt_dofadr, MCI_jnt_bodyid,
     MCI_dof_bodyid, MCI_site_bodyid, MCI_cgeom_bodyid,
     MCI_pair_g1, MCI_pair_g2, MCI_pair_conadr, MCI_con_body1, MCI_con_body2,
     MCI_limit_jnt,
-    MCI_act_dofadr, MCI_act_qposadr, MCI_act_affine,
-    MCI_act_ctrllimited, MCI_act_forcelimited,
-    MCI_chain_mask, MCI_m_mask, MCI_h_mask, MCI_m_pat, MCI_h_pat, MCI_j_sup};
+    MCI_act_qposadr, MCI_act_affine,
+    MCI_act_ctrllimited, MCI_act_forcelimited};
+
+__device__ const TeamTables g_lists = {
+    MCI_level_adr, MCI_level_body, MCI_child_adr, MCI_child_body, MCI_dof_jnt,
+    MCI_dact_adr, MCI_dact, MCI_ment, MCI_mrow_adr, MCI_mrow_col,
+    MCI_jrow_adr, MCI_jrow_col, MCI_jcol_adr, MCI_jcol_row, MCI_cpair,
+    MCI_hrow_adr, MCI_hrow};
+
+__device__ const MC_FACTOR(mf) g_mfac = {
+    MCI_mf_ent, MCI_mf_ent_inm, MCI_mf_col_adr, MCI_mf_col,
+    MCI_mf_upd_adr, MCI_mf_upd, MCI_mf_back_adr, MCI_mf_back};
+__device__ const MC_FACTOR(hf) g_hfac = {
+    MCI_hf_ent, MCI_hf_ent_inm, MCI_hf_col_adr, MCI_hf_col,
+    MCI_hf_upd_adr, MCI_hf_upd, MCI_hf_back_adr, MCI_hf_back};
 
 #define MODEL_REAL_INIT                                                          \
   {MCI_body_pos, MCI_body_quat, MCI_body_ipos, MCI_body_iquat, MCI_body_mass,    \
@@ -107,12 +163,15 @@ __constant__ ModelTopo g_topo = {
    MCI_cgeom_pos, MCI_cgeom_quat, MCI_cgeom_size, MCI_site_pos, MCI_site_quat,   \
    MCI_act_gear, MCI_act_gain, MCI_act_bias, MCI_act_ctrlrange,                  \
    MCI_act_forcerange, MCI_con_friction, MCI_con_solref, MCI_con_solimp,         \
-   MCI_con_includemargin, MCI_gravity, MCI_timestep, MCI_tolerance}
+   MCI_con_includemargin}
+#define MODEL_SCALARS_INIT {MCI_gravity, MCI_timestep, MCI_tolerance}
 
 // the double literals of the header narrow to float here: the constants are
 // rounded once, at compile time, to the type the kernel computes in
-__constant__ ModelReal<float> g_real_f = MODEL_REAL_INIT;
-__constant__ ModelReal<double> g_real_d = MODEL_REAL_INIT;
+__device__ const ModelReal<float> g_real_f = MODEL_REAL_INIT;
+__device__ const ModelReal<double> g_real_d = MODEL_REAL_INIT;
+__constant__ ModelScalars<float> g_scal_f = MODEL_SCALARS_INIT;
+__constant__ ModelScalars<double> g_scal_d = MODEL_SCALARS_INIT;
 
 template <typename T>
 __device__ __forceinline__ const ModelReal<T>& model_real();
@@ -120,3 +179,9 @@ template <>
 __device__ __forceinline__ const ModelReal<float>& model_real<float>() { return g_real_f; }
 template <>
 __device__ __forceinline__ const ModelReal<double>& model_real<double>() { return g_real_d; }
+template <typename T>
+__device__ __forceinline__ const ModelScalars<T>& model_scalars();
+template <>
+__device__ __forceinline__ const ModelScalars<float>& model_scalars<float>() { return g_scal_f; }
+template <>
+__device__ __forceinline__ const ModelScalars<double>& model_scalars<double>() { return g_scal_d; }

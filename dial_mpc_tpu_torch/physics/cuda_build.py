@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,26 +46,45 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def ptxas_summary(log: str) -> list:
-    """The lines of a build log that give registers, stack and spills."""
-    return [l.strip() for l in log.splitlines() if "spill" in l or "registers" in l]
+def ptxas_entries(log: str) -> dict:
+    """Registers, stack, spills and static shared memory of each kernel entry
+    (mangled name -> dict of ints) from a build log of ``-Xptxas -v``."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
+            cur = None
+    return out
 
 
-def build_library(name: str, source: str, includes: tuple, generated: dict) -> BuiltLibrary:
+def build_library(name: str, source: str, includes: tuple, generated: dict,
+                  defines: dict | None = None) -> BuiltLibrary:
     """Compile ``csrc/<source>`` into ``lib<name>.so`` unless it is cached.
 
     ``includes`` names the files of ``csrc/`` the source includes (they enter
     the cache key); ``generated`` maps header file names to their text and is
     written into the library's own build directory, which is on the include
-    path ahead of ``csrc/``.
+    path ahead of ``csrc/``; ``defines`` become ``-D`` flags.
     """
+    flags = [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))]
     h = hashlib.sha256()
     for fname in sorted(generated):
         h.update(fname.encode() + b"\0" + generated[fname].encode())
     for fname in (source, *includes):
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     out_dir = os.path.join(build_root(), name, h.hexdigest()[:16])
     so_path = os.path.join(out_dir, f"lib{name}.so")
     log_path = os.path.join(out_dir, "build.log")
@@ -76,7 +96,7 @@ def build_library(name: str, source: str, includes: tuple, generated: dict) -> B
                 f.write(text)
         tmp = f"{so_path}.tmp{os.getpid()}_{threading.get_ident()}"
         cmd = [
-            find_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC,
+            find_nvcc(), *flags, "-I", out_dir, "-I", CSRC,
             "-o", tmp, os.path.join(CSRC, source),
         ]
         t0 = time.perf_counter()

@@ -3,14 +3,16 @@
 ``step_core(model, qpos, qvel, ctrl, n_steps)`` advances a batch of samples
 by ``n_steps`` physics steps under constant ctrl and returns the 11 products
 the task environments consume. On CUDA tensors it launches the hand-written
-kernel of ``csrc/engine_step.cu`` (one sample per thread) or raises; on CPU
+kernel of ``csrc/engine_step.cu`` (a warp per sample, the sample's working
+set in shared memory) or raises; on CPU
 tensors it runs :func:`step_core_reference`, the same function in plain
 PyTorch on top of ``physics.forward.step``.
 
 The kernel's code is C++ in ``csrc/``. What is generated here, at build
 time and into the build directory, is only ``model_constants.h``: the
-model's sizes, tree topology, frames, inertias, pair table, sparsity
-patterns and solver schedule as initialisers of constant-memory structs.
+model's sizes, tree topology, frames, inertias, pair table, the index lists
+the team's lanes walk (``team_tables``) and the solver schedule, as
+initialisers of the kernel's constant tables.
 One shared library is built per model key (``cuda_build.build_library``); it
 exposes a plain C interface and is loaded with ``ctypes``.
 
@@ -41,7 +43,8 @@ from dial_mpc_tpu_torch.physics.solver import solve_reference
 FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
 
 _CSRC = cuda_build.CSRC
-_INCLUDES = ("lane_math.cuh", "model_consts.cuh", "newton_solve.cuh")
+_INCLUDES = ("lane_math.cuh", "model_consts.cuh", "newton_solve_team.cuh")
+LANES = 32  # lanes a sample (csrc/newton_solve_team.cuh); 16 is built for timing only
 
 OUTPUT_NAMES = (
     "qpos", "qvel", "site_xpos", "site_xmat", "x_pos", "x_rot",
@@ -177,6 +180,100 @@ def static_layout(m: Model) -> dict:
     )
 
 
+def _csr(lists) -> tuple:
+    """A list of index lists -> (start offsets, n + 1 of them; concatenation)."""
+    adr = np.cumsum([0] + [len(x) for x in lists]).astype(np.int64)
+    flat = np.array([v for x in lists for v in x], dtype=np.int64)
+    return adr, flat
+
+
+def _factor_schedule(pat: np.ndarray, mask_elim: np.ndarray) -> dict:
+    """The right-looking Cholesky of a pattern in elimination order, as lists.
+
+    ``ent``: the pattern's lower entries, packed ``r << 8 | c`` (r >= c), and
+    ``ent_inm`` whether each lies in the factored matrix's own mask (else it
+    is fill and starts at zero). Column c: ``col`` the rows r > c of its
+    entries, ``upd`` the trailing updates ``A[r][k] -= L[r][c] L[k][c]``
+    (r >= k > c, packed ``r << 8 | k``), ``back`` the columns c < k of row k
+    for the backward sweep.
+    """
+    n = pat.shape[0]
+    ent = [(r, c) for c in range(n) for r in range(c, n) if pat[r, c]]
+    below = [[r for r in range(c + 1, n) if pat[r, c]] for c in range(n)]
+    upd = [[(r << 8) | k for k in below[c] for r in below[c] if r >= k] for c in range(n)]
+    back = [[c for c in range(k) if pat[k, c]] for k in range(n)]
+    col_adr, col = _csr(below)
+    upd_adr, upd = _csr(upd)
+    back_adr, back = _csr(back)
+    return dict(
+        ent=np.array([(r << 8) | c for r, c in ent], dtype=np.int64),
+        ent_inm=np.array([int(mask_elim[r, c]) for r, c in ent], dtype=np.int64),
+        col_adr=col_adr, col=col, upd_adr=upd_adr, upd=upd, back_adr=back_adr, back=back,
+    )
+
+
+def team_tables(m: Model) -> tuple:
+    """The index lists the team kernel's lanes walk, as numpy int arrays, and
+    the sizes that go with them (tree depth, longest list of each kind).
+
+    Body levels (depth 1, 2, ... of the tree) and children; the dofs' joints
+    and actuators; the masked lower entries of M and its symmetric rows; the
+    supports of J by row and by column; the contact-dof pairs of the
+    translational Jacobians; the factor schedules of M and of the Newton
+    Hessian in elimination order, with the rows that reach each Hessian entry.
+    """
+    lay = static_layout(m)
+    nv, nb = m.nv, m.nbody
+    if nv > 255 or lay["j_sup"].shape[0] > 255:
+        raise NotImplementedError("CUDA step kernel: more than 255 dofs or constraint rows")
+    depth = [0] * nb
+    for b in range(1, nb):
+        depth[b] = depth[m.body_parentid[b]] + 1
+    nlevel = max(depth) if nb > 1 else 0
+    level_adr, level_body = _csr([[b for b in range(1, nb) if depth[b] == d] for d in range(1, nlevel + 1)])
+    child_adr, child_body = _csr([[c for c in range(1, nb) if m.body_parentid[c] == b] for b in range(nb)])
+    dof_jnt = [j for j in range(m.njnt) for _ in range(6 if m.jnt_type[j] == FREE else 1)]
+    act_dof = m.actuator_dofadr.cpu().numpy()
+    dact_adr, dact = _csr([[u for u in range(m.nu) if act_dof[u] == i] for i in range(nv)])
+
+    mm, sup = lay["m_mask"], lay["j_sup"]
+    ment = [(i << 8) | j for i in range(nv) for j in range(i + 1) if mm[i, j]]
+    mrow_adr, mrow_col = _csr([[j for j in range(nv) if mm[i, j]] for i in range(nv)])
+    jrow_adr, jrow_col = _csr([list(np.flatnonzero(r)) for r in sup])
+    jcol_adr, jcol_row = _csr([list(np.flatnonzero(sup[:, i])) for i in range(nv)])
+    cpair = []
+    for slot, (b1, b2) in enumerate(zip(lay["con_body1"], lay["con_body2"])):
+        for i in range(nv):
+            side = int(lay["chain_mask"][b1][i]) | (int(lay["chain_mask"][b2][i]) << 1)
+            if side:
+                cpair.append((slot << 10) | (side << 8) | i)
+
+    mf = _factor_schedule(lay["m_pat"], mm[::-1, ::-1])
+    hf = _factor_schedule(lay["h_pat"], lay["h_mask"][::-1, ::-1])
+    hrows = []
+    for rc in hf["ent"]:
+        i, j = nv - 1 - (rc >> 8), nv - 1 - (rc & 255)
+        hrows.append([r for r in range(sup.shape[0]) if sup[r, i] and sup[r, j]])
+    # the entries reached by the most rows first, so that a pass of the lanes
+    # over the list holds entries of about the same length
+    order = sorted(range(len(hrows)), key=lambda e: -len(hrows[e]))
+    hf["ent"], hf["ent_inm"] = hf["ent"][order], hf["ent_inm"][order]
+    hrow_adr, hrow = _csr([hrows[e] for e in order])
+    out = dict(
+        level_adr=level_adr, level_body=level_body, child_adr=child_adr, child_body=child_body,
+        dof_jnt=dof_jnt, dact_adr=dact_adr, dact=dact, ment=ment, mrow_adr=mrow_adr,
+        mrow_col=mrow_col, jrow_adr=jrow_adr, jrow_col=jrow_col, jcol_adr=jcol_adr,
+        jcol_row=jcol_row, cpair=cpair, hrow_adr=hrow_adr, hrow=hrow,
+    )
+    out.update({f"mf_{k}": v for k, v in mf.items()})
+    out.update({f"hf_{k}": v for k, v in hf.items()})
+    out = {k: np.asarray(v, dtype=np.int64) for k, v in out.items()}
+    # the longest column, update list and row of each factor: a lane's passes
+    longest = {f"{f}_MAX{part.upper()}": int(np.diff(out[f"{f}_{part}_adr"]).max())
+               for f in ("mf", "hf") for part in ("col", "upd", "back")}
+    return out, dict(NLEVEL=nlevel, **longest)
+
+
 def _c_init(a, integer: bool) -> str:
     """A numpy array as a nested brace initialiser (``{0}`` when empty)."""
     a = np.asarray(a)
@@ -221,14 +318,13 @@ def render_constants_header(m: Model) -> str:
         pair_g1=lay["pair_g1"], pair_g2=lay["pair_g2"], pair_conadr=lay["pair_conadr"],
         con_body1=lay["con_body1"], con_body2=lay["con_body2"],
         limit_jnt=lay["limit_jnt"],
-        act_dofadr=m.actuator_dofadr.cpu().numpy(),
         act_qposadr=[m.jnt_qposadr[t] for t in m.actuator_trnid],
         act_affine=[int(bt == 1) for bt in m.actuator_biastype],
         act_ctrllimited=(r(m.actuator_ctrllimited) > 0).astype(np.int64),
         act_forcelimited=(r(m.actuator_forcelimited) > 0).astype(np.int64),
-        chain_mask=lay["chain_mask"], m_mask=lay["m_mask"], h_mask=lay["h_mask"],
-        m_pat=lay["m_pat"], h_pat=lay["h_pat"], j_sup=lay["j_sup"],
     )
+    tables, team_sizes = team_tables(m)
+    sizes.update(team_sizes)
     reals = dict(
         body_pos=r(m.body_pos), body_quat=r(m.body_quat), body_ipos=r(m.body_ipos),
         body_iquat=r(m.body_iquat), body_mass=r(m.body_mass),
@@ -258,6 +354,9 @@ def render_constants_header(m: Model) -> str:
     lines += [f"#define MC_{k} {int(v)}" for k, v in sizes.items()]
     for k, v in ints.items():
         lines.append(f"#define MCI_{k} {_c_init(np.asarray(v).astype(np.int64), True)}")
+    for k, v in tables.items():  # the lanes' index lists; MC_N_<name> is the length
+        lines.append(f"#define MC_N_{k} {len(v)}")
+        lines.append(f"#define MCI_{k} {_c_init(v, True)}")
     for k, v in reals.items():
         v = np.asarray(v, dtype=np.float64)
         if not np.isfinite(v).all():
@@ -344,10 +443,13 @@ class EngineLibrary:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
-        self.lib.engine_in_rows.restype = ctypes.c_int
-        self.lib.engine_out_rows.restype = ctypes.c_int
+        for name in ("engine_in_rows", "engine_out_rows", "engine_lanes",
+                     "engine_team_bytes_f32", "engine_team_bytes_f64",
+                     "engine_teams_per_sm_f32", "engine_teams_per_sm_f64"):
+            getattr(self.lib, name).restype = ctypes.c_int
         self.in_rows = self.lib.engine_in_rows()
         self.out_rows = self.lib.engine_out_rows()
+        self.lanes = self.lib.engine_lanes()
 
     def fn(self, dtype: torch.dtype):
         if dtype == torch.float32:
@@ -355,6 +457,17 @@ class EngineLibrary:
         if dtype == torch.float64:
             return self.lib.engine_step_f64
         raise TypeError(f"CUDA step kernel: dtype {dtype} is not supported (float32/float64)")
+
+    def team_bytes(self, dtype: torch.dtype) -> int:
+        """Shared memory of one sample's team."""
+        return (self.lib.engine_team_bytes_f32 if dtype == torch.float32 else self.lib.engine_team_bytes_f64)()
+
+    def teams_per_sm(self, dtype: torch.dtype) -> int:
+        """Samples one SM holds at once (needs the card)."""
+        n = (self.lib.engine_teams_per_sm_f32 if dtype == torch.float32 else self.lib.engine_teams_per_sm_f64)()
+        if n < 0:
+            raise RuntimeError(f"CUDA step kernel: occupancy query failed with cudaError {-n}")
+        return n
 
 
 _LIBS: dict = {}  # model key -> EngineLibrary
@@ -373,19 +486,24 @@ def exact_model(m: Model) -> Model:
     return put_model(m.mj_model, device="cpu", dtype=torch.float64)
 
 
-def load_library(m: Model) -> EngineLibrary:
-    """Build (at first use) and load the kernel library for this model."""
-    lib = _LIB_OF_MODEL.get(m)
+def load_library(m: Model, lanes: int = LANES) -> EngineLibrary:
+    """Build (at first use) and load the kernel library for this model.
+
+    ``lanes`` is the team size the library is compiled for; the wrapper
+    always uses ``LANES``, another size is built only to be timed beside it.
+    """
+    lib = _LIB_OF_MODEL.get(m) if lanes == LANES else None
     if lib is not None:
         return lib
     m_in, m = m, exact_model(m)
-    key = model_key(m)
+    key = (model_key(m), lanes)
     if key in _LIBS:
-        _LIB_OF_MODEL[m_in] = _LIBS[key]
+        if lanes == LANES:
+            _LIB_OF_MODEL[m_in] = _LIBS[key]
         return _LIBS[key]
     built = cuda_build.build_library(
         "engine_step", "engine_step.cu", _INCLUDES,
-        {"model_constants.h": render_constants_header(m)},
+        {"model_constants.h": render_constants_header(m)}, defines={"LANES": lanes},
     )
     lib = EngineLibrary(built.path, built.seconds, built.log)
     expect_in, expect_out = m.nq + m.nv + m.nu, sum(n for _, n in out_specs(m))
@@ -394,7 +512,9 @@ def load_library(m: Model) -> EngineLibrary:
             f"CUDA step kernel: library rows {(lib.in_rows, lib.out_rows)} "
             f"do not match the model's {(expect_in, expect_out)}"
         )
-    _LIBS[key] = _LIB_OF_MODEL[m_in] = lib
+    _LIBS[key] = lib
+    if lanes == LANES:
+        _LIB_OF_MODEL[m_in] = lib
     return lib
 
 
@@ -444,16 +564,16 @@ def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
     lib = load_library(m)
     fn = lib.fn(qpos.dtype)
     B = qpos.shape[0]
-    # sample axis contiguous: (rows, B)
-    packed_in = torch.cat([qpos, qvel, ctrl], dim=1).t().contiguous()
-    packed_out = torch.empty((lib.out_rows, B), dtype=qpos.dtype, device=qpos.device)
+    # sample-major: one contiguous row a sample, read and written by its team
+    packed_in = torch.cat([qpos, qvel, ctrl], dim=1)
+    packed_out = torch.empty((B, lib.out_rows), dtype=qpos.dtype, device=qpos.device)
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B, n_steps, stream)
     if err != 0:
         raise RuntimeError(f"CUDA step kernel: launch failed with cudaError {err}")
     step_core.launches += 1
-    return _split_outputs(m, packed_out.t().contiguous())
+    return _split_outputs(m, packed_out)
 
 
 step_core.launches = 0

@@ -366,8 +366,13 @@ def test_constants_header_and_layout(go2):
     assert engine_cuda.model_key(tm) == engine_cuda.model_key(put_model(go2["mj"], dtype=F64))
 
 
+# The kernel source compiled as host C++. A team's lanes become LANES
+# std::threads: __syncwarp is a std::barrier of the team, a shuffle an
+# exchange through a buffer between two barrier waits, the dynamic shared
+# memory a buffer of the team pre-filled with a given byte.
 _SHIM = """
 #pragma once
+#include <barrier>
 #include <cmath>
 #include <cstddef>
 #define __device__
@@ -377,48 +382,134 @@ _SHIM = """
 #define __global__
 #define __restrict__
 using std::sqrt; using std::sin; using std::cos; using std::pow; using std::fabs;
-struct dim3_ { int x; };
-static thread_local dim3_ blockIdx, blockDim, threadIdx;
+struct HostTeam { std::barrier<>* bar; double* xbuf; };
+inline thread_local HostTeam* tl_team = nullptr;
+inline thread_local int tl_lane = 0;
+inline void __syncwarp(unsigned) { tl_team->bar->arrive_and_wait(); }
+template <typename T> inline T host_exchange(T v, int src) {
+  tl_team->xbuf[tl_lane] = (double)v;
+  tl_team->bar->arrive_and_wait();
+  T r = (T)tl_team->xbuf[src];
+  tl_team->bar->arrive_and_wait();
+  return r;
+}
+template <typename T> inline T __shfl_xor_sync(unsigned, T v, int o, int) { return host_exchange(v, tl_lane ^ o); }
+template <typename T> inline T __shfl_sync(unsigned, T v, int src, int) { return host_exchange(v, src); }
+template <typename T> inline T __ldg(const T* p) { return *p; }
 """
 _HARNESS = """
 #include "engine_step_nolaunch.cu"
-template <typename T> static void run(const T* in, T* out, int B, int n_steps) {
-  blockDim.x = 1; threadIdx.x = 0;
-  for (int t = 0; t < B; ++t) { blockIdx.x = t; engine_step_kernel<T>(in, out, B, n_steps); }
+#include <cstring>
+#include <thread>
+#include <vector>
+template <typename T> static void run(const T* in, T* out, int B, int n_steps, int fill) {
+  for (int s = 0; s < B; ++s) {
+    std::vector<unsigned char> shared(sizeof(StepShared<T>));
+    std::memset(shared.data(), fill, shared.size());
+    std::barrier<> bar(LANES);
+    double xbuf[LANES];
+    HostTeam team{&bar, xbuf};
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < LANES; ++l)
+      lanes.emplace_back([&, l] {
+        tl_team = &team;
+        tl_lane = l;
+        engine_step_team<T>(Team{l, 0xffffffffu}, *reinterpret_cast<StepShared<T>*>(shared.data()),
+                            in + (size_t)s * N_IN_ROWS, out + (size_t)s * N_OUT_ROWS, n_steps);
+      });
+    for (auto& t : lanes) t.join();
+  }
 }
-extern "C" void run_f64(const double* in, double* out, int B, int n) { run<double>(in, out, B, n); }
-extern "C" void run_f32(const float* in, float* out, int B, int n) { run<float>(in, out, B, n); }
+extern "C" void run_f64(const double* in, double* out, int B, int n, int fill) { run<double>(in, out, B, n, fill); }
+extern "C" void run_f32(const float* in, float* out, int B, int n, int fill) { run<float>(in, out, B, n, fill); }
 extern "C" int out_rows() { return N_OUT_ROWS; }
+extern "C" int lanes() { return LANES; }
 """
+# a program around the harness, for builds that cannot be loaded into Python
+# (ThreadSanitizer): float64 and float32 launches of n_steps on the inputs of
+# a file, both outputs into another
+_MAIN = """
+#include "harness.cpp"
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+  const int B = std::atoi(argv[2]), n = std::atoi(argv[3]);
+  std::vector<double> in((size_t)B * N_IN_ROWS), out((size_t)B * N_OUT_ROWS);
+  FILE* f = std::fopen(argv[1], "rb");
+  if (!f || std::fread(in.data(), sizeof(double), in.size(), f) != in.size()) return 2;
+  std::fclose(f);
+  run<double>(in.data(), out.data(), B, n, 0);
+  std::vector<float> in32(in.begin(), in.end()), out32(out.size());
+  run<float>(in32.data(), out32.data(), B, n, 0);
+  f = std::fopen(argv[4], "wb");
+  std::fwrite(out.data(), sizeof(double), out.size(), f);
+  std::fwrite(out32.data(), sizeof(float), out32.size(), f);
+  std::fclose(f);
+  return 0;
+}
+"""
+SHARED_FILLS = (0x00, 0xFF)  # zeros, and NaN in either type
 
 
-def _build_host_kernel(tm, d, *flags):
-    """csrc/engine_step.cu compiled as host C++ (one thread per call) into d."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler")
+def _write_host_sources(tm, d):
     (d / "shim").mkdir()
     (d / "shim" / "cuda_runtime.h").write_text(_SHIM)
     (d / "model_constants.h").write_text(engine_cuda.render_constants_header(tm))
     src = open(os.path.join(engine_cuda._CSRC, "engine_step.cu")).read()
-    (d / "engine_step_nolaunch.cu").write_text(src[: src.index("constexpr int THREADS_PER_BLOCK")])
+    (d / "engine_step_nolaunch.cu").write_text(src[: src.index("constexpr int SAMPLES_PER_BLOCK")])
     (d / "harness.cpp").write_text(_HARNESS)
-    cmd = [gxx, "-O1", *flags, "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-I", str(d / "shim"),
-           "-I", str(d), "-I", engine_cuda._CSRC, "-o", str(d / "libh.so"), str(d / "harness.cpp")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    (d / "main.cpp").write_text(_MAIN)
+
+
+def _gxx_cmd(d, *flags, lanes=engine_cuda.LANES):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    return [gxx, "-O1", *flags, f"-DLANES={lanes}", "-std=c++20", "-pthread", "-x", "c++",
+            "-I", str(d / "shim"), "-I", str(d), "-I", engine_cuda._CSRC]
+
+
+def _build_host_kernel(tm, d, *flags, lanes=engine_cuda.LANES):
+    """csrc/engine_step.cu compiled as host C++ (a thread a lane) into d."""
+    cmd = _gxx_cmd(d, *flags, lanes=lanes)
+    _write_host_sources(tm, d)
+    r = subprocess.run([*cmd, "-shared", "-fPIC", "-o", str(d / "libh.so"), str(d / "harness.cpp")],
+                       capture_output=True, text=True)
     if flags and "unrecognized command-line option" in r.stderr:
         pytest.skip(f"this g++ does not know {flags}")
     assert r.returncode == 0, r.stderr[-4000:]
-    return ctypes.CDLL(str(d / "libh.so"))
+    lib = ctypes.CDLL(str(d / "libh.so"))
+    assert lib.lanes() == lanes
+    return lib
 
 
-def _run_host_kernel(lib, go2, ctrl, dtype, n_steps):
-    npdt = np.dtype(dtype)
-    inp = np.ascontiguousarray(np.concatenate([go2["qpos"], go2["qvel"], ctrl], 1).T.astype(npdt))
-    out = np.zeros((lib.out_rows(), B), npdt)
+def _host_input(go2, ctrl, dtype):
+    return np.ascontiguousarray(np.concatenate([go2["qpos"], go2["qvel"], ctrl], 1).astype(np.dtype(dtype)))
+
+
+def _run_host_kernel(lib, go2, ctrl, dtype, n_steps, fill=0):
+    """(B, out_rows) outputs of the host build, sample-major like the kernel's."""
+    inp = _host_input(go2, ctrl, dtype)
+    out = np.zeros((B, lib.out_rows()), np.dtype(dtype))
     fn = lib.run_f64 if dtype == "float64" else lib.run_f32
-    fn(inp.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), B, n_steps)
+    fn(inp.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), B, n_steps, fill)
     return out
+
+
+def _assert_host_matches_plain(go2, out, ctrl, dtype, n_steps):
+    tm = go2["tm"]
+    t = lambda a: torch.tensor(a, dtype=F64)
+    refs = engine_cuda.step_core_reference(tm, t(go2["qpos"]), t(go2["qvel"]), t(ctrl), n_steps)
+    assert out.shape[1] == sum(n for _, n in engine_cuda.out_specs(tm))
+    o = 0
+    for (name, n), ref in zip(engine_cuda.out_specs(tm), refs):
+        got = out[:, o : o + n]
+        o += n
+        if dtype == "float64":
+            tol = _OUT_TOL.get(name, 1e-7)
+        else:  # float32 arithmetic against the float64 plain version
+            tol = {"qacc": 5e-2, "qvel": 1e-3, "xd_vel": 1e-3, "xd_ang": 1e-3}.get(name, 1e-4)
+        np.testing.assert_allclose(got, ref.numpy(), atol=tol, rtol=tol, err_msg=f"{name} {dtype}")
 
 
 @pytest.fixture(scope="module")
@@ -430,20 +521,17 @@ def host_kernel(go2, tmp_path_factory):
 @pytest.mark.parametrize("n_steps", [1, 3])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_source_on_host_matches_plain_version(go2, host_kernel, dtype, n_steps):
-    tm, ctrl = go2["tm"], go2["ctrls"][4]
-    t = lambda a: torch.tensor(a, dtype=F64)
-    refs = engine_cuda.step_core_reference(tm, t(go2["qpos"]), t(go2["qvel"]), t(ctrl), n_steps)
-    out = _run_host_kernel(host_kernel, go2, ctrl, dtype, n_steps)
-    assert out.shape[0] == sum(n for _, n in engine_cuda.out_specs(tm))
-    o = 0
-    for (name, n), ref in zip(engine_cuda.out_specs(tm), refs):
-        got = out[o : o + n].T
-        o += n
-        if dtype == "float64":
-            tol = _OUT_TOL.get(name, 1e-7)
-        else:  # float32 arithmetic against the float64 plain version
-            tol = {"qacc": 5e-2, "qvel": 1e-3, "xd_vel": 1e-3, "xd_ang": 1e-3}.get(name, 1e-4)
-        np.testing.assert_allclose(got, ref.numpy(), atol=tol, rtol=tol, err_msg=f"{name} {dtype}")
+    ctrl = go2["ctrls"][4]
+    _assert_host_matches_plain(go2, _run_host_kernel(host_kernel, go2, ctrl, dtype, n_steps), ctrl, dtype, n_steps)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_source_with_16_lanes_matches_plain_version(go2, tmp_path_factory, dtype):
+    """The team size is a compile-time constant; half a warp a sample (each
+    lane then owns two rows and up to two dofs) computes the same function."""
+    lib = _build_host_kernel(go2["tm"], tmp_path_factory.mktemp("host16"), lanes=16)
+    ctrl = go2["ctrls"][4]
+    _assert_host_matches_plain(go2, _run_host_kernel(lib, go2, ctrl, dtype, 3), ctrl, dtype, 3)
 
 
 @pytest.fixture(scope="module")
@@ -459,10 +547,47 @@ def host_kernel_prefilled(go2, tmp_path_factory):
 def test_kernel_source_reads_no_uninitialised_value(go2, host_kernel, host_kernel_prefilled, dtype):
     """The kernel never writes the entries of M, H, L and J that lie outside
     the static patterns, so it must never read them either: whatever the
-    local variables held before, the outputs are the same bit for bit."""
+    local variables and the team's shared memory held before (zeros, NaN),
+    the outputs are the same bit for bit."""
     plain = _run_host_kernel(host_kernel, go2, go2["ctrls"][5], dtype, 3)
-    for lib in host_kernel_prefilled:
-        np.testing.assert_array_equal(_run_host_kernel(lib, go2, go2["ctrls"][5], dtype, 3), plain)
+    for lib in (host_kernel, *host_kernel_prefilled):
+        for fill in SHARED_FILLS:
+            np.testing.assert_array_equal(_run_host_kernel(lib, go2, go2["ctrls"][5], dtype, 3, fill), plain)
+
+
+@pytest.mark.parametrize("lanes", [32, 16])
+def test_kernel_source_has_no_data_race(go2, host_kernel, tmp_path, lanes):
+    """ThreadSanitizer over the lane-emulating host build, two samples and two
+    steps in both types: no lane reads or writes a value another lane writes
+    in the same phase (between two team syncs). Shuffles are barriers on the
+    host, so this cannot see a missing sync that a shuffle stands in for; the
+    kernel never relies on one. The outputs equal the plain host build's."""
+    cmd = _gxx_cmd(tmp_path, "-fsanitize=thread", "-g", lanes=lanes)
+    _write_host_sources(go2["tm"], tmp_path)
+    r = subprocess.run([*cmd, "-o", str(tmp_path / "tsan"), str(tmp_path / "main.cpp")],
+                       capture_output=True, text=True)
+    if r.returncode != 0 and ("tsan" in r.stderr or "sanitize" in r.stderr):
+        pytest.skip(f"this toolchain has no ThreadSanitizer: {r.stderr[-300:]}")
+    assert r.returncode == 0, r.stderr[-4000:]
+    nb, n_steps, ctrl = 2, 2, go2["ctrls"][6]
+    _host_input(go2, ctrl, "float64")[:nb].tofile(tmp_path / "in.bin")
+    run = subprocess.run(
+        [str(tmp_path / "tsan"), str(tmp_path / "in.bin"), str(nb), str(n_steps), str(tmp_path / "out.bin")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "TSAN_OPTIONS": "halt_on_error=1 exitcode=66"},
+    )
+    if "unexpected memory mapping" in run.stderr:
+        pytest.skip("ThreadSanitizer cannot run under this kernel's memory layout")
+    assert "ThreadSanitizer" not in run.stderr and run.returncode == 0, run.stderr[-6000:]
+    raw = (tmp_path / "out.bin").read_bytes()
+    rows = host_kernel.out_rows()
+    out64 = np.frombuffer(raw[: nb * rows * 8], np.float64).reshape(nb, rows)
+    out32 = np.frombuffer(raw[nb * rows * 8 :], np.float32).reshape(nb, rows)
+    if lanes == engine_cuda.LANES:
+        for dtype, got in (("float64", out64), ("float32", out32)):
+            np.testing.assert_array_equal(got, _run_host_kernel(host_kernel, go2, ctrl, dtype, n_steps)[:nb])
+    else:
+        assert np.isfinite(out64).all() and np.isfinite(out32).all()
 
 
 # ---------------------------------------------------------------------------

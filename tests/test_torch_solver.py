@@ -350,14 +350,19 @@ def test_solver_constants_header_and_key(go2_rows):
 def test_build_helper_is_shared_and_needs_nvcc(monkeypatch, tmp_path):
     """Both kernels build through cuda_build; without nvcc the build raises
     (there is no other way to a library)."""
-    assert engine_cuda._CSRC == cuda_build.CSRC and "newton_solve.cuh" in engine_cuda._INCLUDES
+    assert engine_cuda._CSRC == cuda_build.CSRC and "newton_solve_team.cuh" in engine_cuda._INCLUDES
+    assert "newton_solve.cuh" not in engine_cuda._INCLUDES
     assert "newton_solve.cuh" in solver_cuda._INCLUDES
     monkeypatch.setenv("DIAL_MPC_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(cuda_build, "find_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
     with pytest.raises(RuntimeError, match="nvcc"):
         solver_cuda.load_library((6, 12, 2, 4, 1e-8, (), 1.0))
-    log = "ptxas info    : Used 255 registers, 12032 bytes cumulative stack size\n    92 bytes spill stores, 92 bytes spill loads\nother"
-    assert len(cuda_build.ptxas_summary(log)) == 2
+    log = ("ptxas info    : Compiling entry function '_Z1kIfEvv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kIfEvv\n"
+           "    12032 bytes stack frame, 92 bytes spill stores, 92 bytes spill loads\n"
+           "ptxas info    : Used 255 registers, used 0 barriers, 16 bytes smem, 12032 bytes cumulative stack size\nother")
+    assert cuda_build.ptxas_entries(log) == {"_Z1kIfEvv": dict(
+        stack=12032, spill_stores=92, spill_loads=92, registers=255, static_smem=16)}
 
 
 # ---------------------------------------------------------------------------
