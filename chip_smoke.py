@@ -17,7 +17,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
        states included and counted), B = 2049 and B = 1, float64 and float32,
        and the synthetic problem of tools/solver_cases.py, which puts rows in
        every branch (friction loss on both sides of its clamp, elliptic
-       groups of dimension 3 and 6 in every zone, counted);
+       groups of dimension 3 and 6 in every zone, counted); two launches on
+       the same inputs (bit for bit); its occupancy and ptxas numbers by type;
      - the fused route (step kernel) against the unfused one (plain stages
        with the solver kernel) on the same states, float64;
      - the whole planner on a small input, card against CPU;
@@ -262,21 +263,21 @@ def phase_compare(mj):
         kernel_b1_ms=kernel_b1_ms, kernel64_ms=kernel64_ms, lanes=lib.lanes,
         teams_per_sm={"float32": lib.teams_per_sm(torch.float32), "float64": lib.teams_per_sm(torch.float64)},
         team_shared_bytes={"float32": lib.team_bytes(torch.float32), "float64": lib.team_bytes(torch.float64)},
-        ptxas=engine_ptxas(lib),
+        ptxas=kernel_ptxas(lib, "engine_step_kernel"),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
     states = dict(settled=(qpos, qvel, ctrl), at_limits=(ql, vl, ctrl), n_limit=n_limit)
     return timing, m64, m32, states
 
 
-def engine_ptxas(lib):
-    """Registers, stack, spills and static shared memory of the step kernel,
-    by type, from its build log."""
+def kernel_ptxas(lib, kernel):
+    """Registers, stack, spills and static shared memory of a kernel, by type,
+    from its library's build log."""
     kinds = {"IfE": "float32", "IdE": "float64"}
     return {
         kind: numbers
         for name, numbers in cuda_build.ptxas_entries(lib.build_log).items()
-        if "engine_step_kernel" in name
+        if kernel in name
         for tag, kind in kinds.items() if tag in name
     }
 
@@ -367,6 +368,16 @@ def phase_solver_compare(m64, m32, states):
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
     )
 
+    # two launches on the same inputs, the same bits: the team's sums have a
+    # fixed order and no lane reads what another writes in the same phase
+    for model, a in ((m64, timing_args), (m32, timing_args32)):
+        first = solver_cuda.solve_batched(model, *a)
+        second = solver_cuda.solve_batched(model, *a)
+        torch.cuda.synchronize()
+        for out_name, x, y in zip(("x", "qfrc"), first, second):
+            require(torch.equal(x, y), f"solver kernel, {a[0].dtype}: two launches differ in {out_name}")
+    emit("solver_repeat_launch", ok=True, bit_equal=True, dtypes=["float64", "float32"], B=B_FULL)
+
     # ---- timings at the unfused path's shape: Go2 rows, B = 2049, float32 ----
     key = solver_cuda.solver_key(m32, timing_args32[0].shape[1])
     lib = solver_cuda.load_library(key)
@@ -374,36 +385,45 @@ def phase_solver_compare(m64, m32, states):
         solver_cuda.solve_batched(m32, *timing_args32)
     torch.cuda.synchronize()
     wrapper_ms = cuda_ms(lambda: solver_cuda.solve_batched(m32, *timing_args32), 100)
-    packed_in = solver_cuda.pack_inputs(*timing_args32)
-    packed_out = torch.empty((lib.out_rows, B_FULL), dtype=torch.float32, device=DEVICE)
     stream = torch.cuda.current_stream().cuda_stream
-    fn = lib.fn(torch.float32)
 
-    def raw():
-        err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B_FULL, stream)
-        require(err == 0, f"launch failed with cudaError {err}")
+    def raw_launch(args):
+        """The bare kernel on the inputs as they are, timed by the caller."""
+        J, D, aref, fl, eta, M, qs = args
+        outs = [torch.empty_like(qs) for _ in range(2)]
+        fn = lib.fn(J.dtype)
+        ptrs = [t.data_ptr() for t in (J, M, D, aref, fl, eta, qs, *outs)]
 
-    kernel_ms = cuda_ms(raw, 100)
+        def go():
+            err = fn(*ptrs, J.shape[0], stream)
+            require(err == 0, f"launch failed with cudaError {err}")
+
+        return go
+
+    kernel_ms = cuda_ms(raw_launch(timing_args32), 100)
+    kernel_b1_ms = cuda_ms(raw_launch([a[:1] for a in timing_args32]), 100)
+    kernel64_ms = cuda_ms(raw_launch(timing_args), 50)
     solver_cuda.solve_batched_reference(m32, *timing_args32)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: solver_cuda.solve_batched_reference(m32, *timing_args32), 5)
     b1_ms = cuda_ms(lambda: solver_cuda.solve_batched(m32, *[a[:1] for a in timing_args32]), 100)
     wrapper64_ms = cuda_ms(lambda: solver_cuda.solve_batched(m64, *timing_args), 50)
-    packed64 = solver_cuda.pack_inputs(*timing_args)
-    out64 = torch.empty((lib.out_rows, B_FULL), dtype=torch.float64, device=DEVICE)
-    fn64 = lib.fn(torch.float64)
-    kernel64_ms = cuda_ms(lambda: fn64(packed64.data_ptr(), out64.data_ptr(), B_FULL, stream), 50)
 
     # each dense operand once in, each result once out
-    nbytes = (lib.in_rows + lib.out_rows) * B_FULL * 4
+    nbytes = sum(solver_cuda.io_values(key)) * B_FULL * 4
     flops = solver_cuda.solve_flops(key) * B_FULL
     bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
     ops_ms = flops / H100_FP32_FLOPS * 1e3
+    shapes = {name: lib.launch_shape(dt) for name, dt in (("float32", torch.float32), ("float64", torch.float64))}
     return dict(
         max_abs_err=errs["f32_B2049_settled"], wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, kernel64_ms=kernel64_ms,
-        bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        kernel_b1_ms=kernel_b1_ms, bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations", lanes=lib.lanes,
+        samples_per_block={k: v[0] for k, v in shapes.items()},
+        teams_per_sm={k: v[1] for k, v in shapes.items()},
+        team_shared_bytes={"float32": lib.team_bytes(torch.float32), "float64": lib.team_bytes(torch.float64)},
+        ptxas=kernel_ptxas(lib, "solver_newton_kernel"),
     )
 
 
@@ -593,6 +613,8 @@ def main():
     emit("engine_step_timing", **{k: v for k, v in timing_e.items() if k != "max_abs_err"},
          card=smi)
     timing_s = phase_solver_compare(m64, m32, states)
+    emit("solver_newton_timing", **{k: v for k, v in timing_s.items() if k != "max_abs_err"},
+         card=smi)
     phase_fused_vs_unfused(m64, states)
     phase_small_input()
     if args.compare_only:
@@ -628,7 +650,10 @@ def main():
             "solver_newton", "dial_mpc_tpu_torch/csrc/solver_newton.cu",
             "dial_mpc_tpu/physics/solver_pallas.py:430", launches_s, timing_s,
             path="unitree_go2_trot, unfused route", control_step_ms_median=step_ms_unfused,
-            f64_kernel_ms=timing_s["kernel64_ms"],
+            kernel_b1_ms=timing_s["kernel_b1_ms"], f64_kernel_ms=timing_s["kernel64_ms"],
+            lanes=timing_s["lanes"], samples_per_block=timing_s["samples_per_block"],
+            teams_per_sm=timing_s["teams_per_sm"], team_shared_bytes=timing_s["team_shared_bytes"],
+            ptxas=timing_s["ptxas"],
         ),
     ]
     emit("done", seconds=time.time() - t_start)

@@ -103,6 +103,8 @@ __device__ __forceinline__ void make_frame(T* frame, const T* n) {
 struct EnginePolicy {
   static constexpr int NV = mc::NV, NEFC = mc::NEFC;
   static constexpr int ITERATIONS = mc::ITERATIONS, LS_ITERATIONS = mc::LS_ITERATIONS;
+  static constexpr bool DENSE = false, FRICTION_ROWS = false, CONSTRAINT_FORCE = false;
+  static constexpr int NGROUPS = 0;
   static __device__ __forceinline__ const short* jrow_adr() { return g_lists.jrow_adr; }
   static __device__ __forceinline__ const short* jrow_col() { return g_lists.jrow_col; }
   static __device__ __forceinline__ const short* jcol_adr() { return g_lists.jcol_adr; }

@@ -5,17 +5,17 @@ samples, ``min_x 0.5 (x-qs)' M (x-qs) + sum_i s_i(J_i x - aref_i)`` on dense
 inputs ``J (B, nefc, nv)``, ``M (B, nv, nv)``, ``D / aref / fl / eta
 (B, nefc)``, ``qs (B, nv)`` and returns ``x`` and ``qfrc = J' force``, both
 ``(B, nv)``. On CUDA tensors it launches the hand-written kernel of
-``csrc/solver_newton.cu`` (one sample per thread) or raises; on CPU tensors it
-runs :func:`solve_batched_reference`, the plain ``solver._solve_arrays``.
+``csrc/solver_newton.cu`` (a team of lanes per sample, the working set in
+shared memory) or raises; on CPU tensors it runs
+:func:`solve_batched_reference`, the plain ``solver._solve_arrays``.
 
 The kernel's statics are its key: nv, nefc, the solver schedule, the
 tolerance, the elliptic groups' rows and impratio. One shared library is built
 per key from ``csrc/`` plus a generated ``solver_constants.h`` that holds
 exactly those; it serves float32 and float64.
 
-The kernel wants the sample axis last. The wrapper packs all seven inputs
-into one ``(rows, B)`` tensor (one ``cat`` and one transposing copy) and
-splits one ``(2 nv, B)`` output (one transposing copy back).
+The kernel reads the seven inputs in place, sample-major as they come, and
+writes the two outputs in place: the wrapper makes no copy.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from dial_mpc_tpu_torch.physics import cuda_build, solver
 from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.model import Model
 
-_INCLUDES = ("lane_math.cuh", "newton_solve.cuh")
+_INCLUDES = ("lane_math.cuh", "newton_solve_team.cuh")
 
 
 def solver_key(m: Model, nefc: int) -> tuple:
@@ -40,9 +40,10 @@ def solver_key(m: Model, nefc: int) -> tuple:
     )
 
 
-def in_rows(key: tuple) -> int:
+def io_values(key: tuple) -> tuple:
+    """Values one sample reads (J, M, D, aref, fl, eta, qs) and writes (x, qfrc)."""
     nv, nefc = key[:2]
-    return nefc * nv + nv * nv + 4 * nefc + nv
+    return nefc * nv + nv * nv + 4 * nefc + nv, 2 * nv
 
 
 def render_constants_header(key: tuple) -> str:
@@ -50,11 +51,9 @@ def render_constants_header(key: tuple) -> str:
     nv, nefc, iterations, ls_iterations, tolerance, groups, impratio = key
     if nv < 1 or nefc < 1:
         raise ValueError(f"CUDA solver kernel: nv and nefc must be positive, got {(nv, nefc)}")
-    simple = [1] * nefc
     for row0, dim in groups:
         if not (2 <= dim <= 6 and 0 <= row0 and row0 + dim <= nefc):
             raise ValueError(f"CUDA solver kernel: bad elliptic group {(row0, dim)} for nefc {nefc}")
-        simple[row0 : row0 + dim] = [0] * dim
 
     def init(values):
         return "{" + ", ".join(str(int(v)) for v in values) + "}" if values else "{0}"
@@ -72,7 +71,6 @@ def render_constants_header(key: tuple) -> str:
         f"#define SC_IMPRATIO {float(impratio)!r}",
         f"#define SCI_group_row0 {init([g[0] for g in groups])}",
         f"#define SCI_group_dim {init([g[1] for g in groups])}",
-        f"#define SCI_row_simple {init(simple)}",
     ]
     return "\n".join(lines) + "\n"
 
@@ -106,12 +104,17 @@ class SolverLibrary:
         self.lib = ctypes.CDLL(built.path)
         for name in ("solver_newton_f32", "solver_newton_f64"):
             fn = getattr(self.lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        self.lib.solver_in_rows.restype = ctypes.c_int
-        self.lib.solver_out_rows.restype = ctypes.c_int
-        self.in_rows = self.lib.solver_in_rows()
-        self.out_rows = self.lib.solver_out_rows()
+        for name in ("solver_nv", "solver_nefc", "solver_lanes", "solver_team_bytes_f32",
+                     "solver_team_bytes_f64", "solver_samples_per_block_f32",
+                     "solver_samples_per_block_f64", "solver_teams_per_sm_f32",
+                     "solver_teams_per_sm_f64"):
+            getattr(self.lib, name).restype = ctypes.c_int
+        self.nv = self.lib.solver_nv()
+        self.nefc = self.lib.solver_nefc()
+        self.lanes = self.lib.solver_lanes()
+        self._shapes = {}
 
     def fn(self, dtype: torch.dtype):
         if dtype == torch.float32:
@@ -119,6 +122,33 @@ class SolverLibrary:
         if dtype == torch.float64:
             return self.lib.solver_newton_f64
         raise TypeError(f"CUDA solver kernel: dtype {dtype} is not supported (float32/float64)")
+
+    def _tag(self, dtype: torch.dtype) -> str:
+        self.fn(dtype)
+        return "f32" if dtype == torch.float32 else "f64"
+
+    def team_bytes(self, dtype: torch.dtype) -> int:
+        """Shared memory of one sample's team."""
+        return getattr(self.lib, f"solver_team_bytes_{self._tag(dtype)}")()
+
+    def launch_shape(self, dtype: torch.dtype) -> tuple:
+        """(samples a block, teams an SM) the launch uses (needs the card)."""
+        shape = self._shapes.get(dtype)
+        if shape is None:
+            shape = self._shapes[dtype] = self._query_shape(dtype)
+        return shape
+
+    def _query_shape(self, dtype: torch.dtype) -> tuple:
+        tag = self._tag(dtype)
+        spb = getattr(self.lib, f"solver_samples_per_block_{tag}")()
+        if spb < 0:
+            raise RuntimeError(f"CUDA solver kernel: occupancy query failed with cudaError {-spb}")
+        if spb == 0:
+            raise RuntimeError(
+                f"CUDA solver kernel: one sample's working set, {self.team_bytes(dtype)} bytes of "
+                f"shared memory in {dtype}, exceeds what a block of this card may have"
+            )
+        return spb, getattr(self.lib, f"solver_teams_per_sm_{tag}")()
 
 
 _LIBS: dict = {}  # solver key -> SolverLibrary
@@ -135,11 +165,9 @@ def load_library(key: tuple) -> SolverLibrary:
             {"solver_constants.h": render_constants_header(key)},
         )
         lib = SolverLibrary(built)
-        expect = (in_rows(key), 2 * key[0])
-        if (lib.in_rows, lib.out_rows) != expect:
+        if (lib.nv, lib.nefc) != key[:2]:
             raise RuntimeError(
-                f"CUDA solver kernel: library rows {(lib.in_rows, lib.out_rows)} "
-                f"do not match the key's {expect}"
+                f"CUDA solver kernel: library sizes {(lib.nv, lib.nefc)} do not match the key's {key[:2]}"
             )
         _LIBS[key] = lib
     return lib
@@ -163,14 +191,6 @@ def _check_inputs(m: Model, J, D, aref, fl, eta, M, qs):
             raise ValueError(f"elliptic group {(row0, dim)} lies outside the {nefc} rows given")
 
 
-def pack_inputs(J, D, aref, fl, eta, M, qs) -> torch.Tensor:
-    """The kernel's one input: (rows, B), sample axis contiguous."""
-    B = J.shape[0]
-    return torch.cat(
-        [J.reshape(B, -1), M.reshape(B, -1), D, aref, fl, eta, qs], dim=1
-    ).t().contiguous()
-
-
 def solve_batched(m: Model, J, D, aref, fl, eta, M, qs):
     """Batched Newton solve (axis 0 = samples) -> (x, qfrc), both (B, nv).
 
@@ -181,22 +201,24 @@ def solve_batched(m: Model, J, D, aref, fl, eta, M, qs):
         return solve_batched_reference(m, J, D, aref, fl, eta, M, qs)
     if J.device.type != "cuda":
         raise ValueError(f"CUDA solver kernel: unsupported device {J.device}")
+    if not all(t.is_contiguous() for t in (J, D, aref, fl, eta, M, qs)):
+        raise ValueError("CUDA solver kernel: J, D, aref, fl, eta, M and qs must be contiguous")
     B, nefc, nv = J.shape
     keys = _KEYS_OF_MODEL.setdefault(m, {})
     if nefc not in keys:
         keys[nefc] = solver_key(m, nefc)
     lib = load_library(keys[nefc])
     fn = lib.fn(J.dtype)
-    packed_in = pack_inputs(J, D, aref, fl, eta, M, qs)
-    packed_out = torch.empty((lib.out_rows, B), dtype=J.dtype, device=J.device)
+    lib.launch_shape(J.dtype)  # raises if a sample's working set does not fit a block
+    x = torch.empty((B, nv), dtype=J.dtype, device=J.device)
+    qfrc = torch.empty((B, nv), dtype=J.dtype, device=J.device)
     with torch.cuda.device(J.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed_in.data_ptr(), packed_out.data_ptr(), B, stream)
+        err = fn(*(t.data_ptr() for t in (J, M, D, aref, fl, eta, qs, x, qfrc)), B, stream)
     if err != 0:
         raise RuntimeError(f"CUDA solver kernel: launch failed with cudaError {err}")
     solve_batched.launches += 1
-    out = packed_out.t().contiguous()
-    return out[:, :nv], out[:, nv:]
+    return x, qfrc
 
 
 solve_batched.launches = 0

@@ -14,11 +14,17 @@ that exports ``engine_sample_major`` takes (B, rows) arrays, an older one
 and ``--ls-iterations`` build a shorter solver schedule, so that differences
 of times show what the Newton steps and the line search cost. Run it once per
 checkout inside one call, in turns (a, b, b, a), and compare only within that
-call. Prints one JSON line with the card's name and power limit.
+call. Prints one JSON line with the card's name and power limit, a hash of
+each type's outputs at B = 2049 (two checkouts that compute the same bits
+print the same hash) and, where ``cuobjdump`` is installed, a hash of the
+library's machine code (its SASS instructions, without addresses' comments).
 """
 
 import argparse
+import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 
@@ -29,6 +35,17 @@ from dial_mpc_tpu_torch.physics import engine_cuda, make_data, put_model, step
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
 
 B = 2049
+
+
+def sass_hash(path):
+    """A hash of the instructions cuobjdump prints for a library, or None."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    code = [line.split("/*")[1].split("*/")[1].strip() for line in sass.splitlines()
+            if line.strip().startswith("/*") and line.count("*/") >= 1 and ";" in line]
+    return hashlib.sha256("\n".join(code).encode()).hexdigest()[:16] if code else None
 
 
 def main():
@@ -85,8 +102,13 @@ def main():
             if not torch.isfinite(packed_out).all():
                 sys.exit("non-finite output")
             out[name + ("_kernel_ms" if batch == B else "_B1_kernel_ms")] = times[1:]
+            if batch == B:  # outputs in the (B, rows) order whatever the layout
+                rows_major = packed_out if sample_major else packed_out.t()
+                out[name + "_output_sha256"] = hashlib.sha256(
+                    rows_major.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
         out["sample_major"] = sample_major
         out["lanes"] = getattr(lib, "lanes", 1)
+        out["sass_sha256"] = sass_hash(lib.path)
     out["card"] = subprocess.run(
         "nvidia-smi --query-gpu=name,power.limit --format=csv,noheader",
         shell=True, capture_output=True, text=True,

@@ -11,7 +11,6 @@ Run with:  python -m pytest tests/test_torch_*.py -q
 import ctypes
 import dataclasses
 import os
-import shutil
 import subprocess
 
 import jax
@@ -31,6 +30,7 @@ from dial_mpc_tpu.physics.kinematics import replace as jreplace
 from dial_mpc_tpu_torch.physics import compiled_model, engine_cuda, linalg, maths
 from dial_mpc_tpu_torch.physics.forward import forward as tforward, step as tstep
 from dial_mpc_tpu_torch.physics.model import Data, make_data, put_model
+from dial_mpc_tpu_torch.tools import host_build
 from dial_mpc_tpu_torch.utils import convert
 from dial_mpc_tpu_torch.utils.io_utils import get_model_path
 
@@ -366,58 +366,21 @@ def test_constants_header_and_layout(go2):
     assert engine_cuda.model_key(tm) == engine_cuda.model_key(put_model(go2["mj"], dtype=F64))
 
 
-# The kernel source compiled as host C++. A team's lanes become LANES
-# std::threads: __syncwarp is a std::barrier of the team, a shuffle an
-# exchange through a buffer between two barrier waits, the dynamic shared
-# memory a buffer of the team pre-filled with a given byte.
-_SHIM = """
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#define __device__
-#define __forceinline__ inline
-#define __noinline__
-#define __constant__ static const
-#define __global__
-#define __restrict__
-using std::sqrt; using std::sin; using std::cos; using std::pow; using std::fabs;
-struct HostTeam { std::barrier<>* bar; double* xbuf; };
-inline thread_local HostTeam* tl_team = nullptr;
-inline thread_local int tl_lane = 0;
-inline void __syncwarp(unsigned) { tl_team->bar->arrive_and_wait(); }
-template <typename T> inline T host_exchange(T v, int src) {
-  tl_team->xbuf[tl_lane] = (double)v;
-  tl_team->bar->arrive_and_wait();
-  T r = (T)tl_team->xbuf[src];
-  tl_team->bar->arrive_and_wait();
-  return r;
-}
-template <typename T> inline T __shfl_xor_sync(unsigned, T v, int o, int) { return host_exchange(v, tl_lane ^ o); }
-template <typename T> inline T __shfl_sync(unsigned, T v, int src, int) { return host_exchange(v, src); }
-template <typename T> inline T __ldg(const T* p) { return *p; }
-"""
+# The kernel source compiled as host C++ (tools/host_build.py): a team's lanes
+# become LANES std::threads, the dynamic shared memory a buffer of the team
+# pre-filled with a given byte.
 _HARNESS = """
 #include "engine_step_nolaunch.cu"
+#include "run_team.h"
 #include <cstring>
-#include <thread>
-#include <vector>
 template <typename T> static void run(const T* in, T* out, int B, int n_steps, int fill) {
   for (int s = 0; s < B; ++s) {
     std::vector<unsigned char> shared(sizeof(StepShared<T>));
     std::memset(shared.data(), fill, shared.size());
-    std::barrier<> bar(LANES);
-    double xbuf[LANES];
-    HostTeam team{&bar, xbuf};
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < LANES; ++l)
-      lanes.emplace_back([&, l] {
-        tl_team = &team;
-        tl_lane = l;
-        engine_step_team<T>(Team{l, 0xffffffffu}, *reinterpret_cast<StepShared<T>*>(shared.data()),
-                            in + (size_t)s * N_IN_ROWS, out + (size_t)s * N_OUT_ROWS, n_steps);
-      });
-    for (auto& t : lanes) t.join();
+    run_team([&](int l) {
+      engine_step_team<T>(Team{l, 0xffffffffu}, *reinterpret_cast<StepShared<T>*>(shared.data()),
+                          in + (size_t)s * N_IN_ROWS, out + (size_t)s * N_OUT_ROWS, n_steps);
+    });
   }
 }
 extern "C" void run_f64(const double* in, double* out, int B, int n, int fill) { run<double>(in, out, B, n, fill); }
@@ -452,21 +415,19 @@ SHARED_FILLS = (0x00, 0xFF)  # zeros, and NaN in either type
 
 
 def _write_host_sources(tm, d):
-    (d / "shim").mkdir()
-    (d / "shim" / "cuda_runtime.h").write_text(_SHIM)
+    host_build.write_shim(d)
     (d / "model_constants.h").write_text(engine_cuda.render_constants_header(tm))
-    src = open(os.path.join(engine_cuda._CSRC, "engine_step.cu")).read()
-    (d / "engine_step_nolaunch.cu").write_text(src[: src.index("constexpr int SAMPLES_PER_BLOCK")])
+    (d / "engine_step_nolaunch.cu").write_text(
+        host_build.source_without_launch("engine_step.cu", "constexpr int SAMPLES_PER_BLOCK"))
     (d / "harness.cpp").write_text(_HARNESS)
     (d / "main.cpp").write_text(_MAIN)
 
 
 def _gxx_cmd(d, *flags, lanes=engine_cuda.LANES):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    try:
+        return host_build.gxx_command(d, *flags, lanes=lanes)
+    except FileNotFoundError:
         pytest.skip("no host C++ compiler")
-    return [gxx, "-O1", *flags, f"-DLANES={lanes}", "-std=c++20", "-pthread", "-x", "c++",
-            "-I", str(d / "shim"), "-I", str(d), "-I", engine_cuda._CSRC]
 
 
 def _build_host_kernel(tm, d, *flags, lanes=engine_cuda.LANES):

@@ -12,7 +12,6 @@ import ctypes
 import dataclasses
 import functools
 import os
-import shutil
 import subprocess
 import types
 
@@ -34,7 +33,7 @@ from dial_mpc_tpu.physics.kinematics import replace as jreplace
 from dial_mpc_tpu_torch.physics import constraint, cuda_build, engine_cuda, solver, solver_cuda
 from dial_mpc_tpu_torch.physics.forward import forward as tforward, step as tstep
 from dial_mpc_tpu_torch.physics.model import make_data, put_model
-from dial_mpc_tpu_torch.tools import solver_cases
+from dial_mpc_tpu_torch.tools import host_build, solver_cases
 from dial_mpc_tpu_torch.utils import convert
 
 GO2 = "unitree_go2/mjx_scene_force.xml"
@@ -327,6 +326,19 @@ def test_solve_batched_rejects_bad_inputs(go2_rows):
         solver_cuda.solve_batched(solver_cases.synthetic_model(), a[0][:, :8], *[v[:, :8] for v in a[1:5]], a[5], a[6])
 
 
+def test_solve_stage_hands_the_kernel_contiguous_inputs(go2_rows, monkeypatch):
+    """The kernel reads its seven inputs in place and its wrapper refuses
+    non-contiguous ones on the card: the solve stage of the plain forward
+    (the unfused route and every reset) hands it contiguous tensors."""
+    tm, mj = go2_rows["tm"], go2_rows["mj"]
+    qpos, qvel, ctrl = (torch.tensor(a) for a in _go2_states(mj))
+    seen = []
+    real = solver_cuda.solve_batched
+    monkeypatch.setattr(solver_cuda, "solve_batched", lambda m, *a: seen.append(a) or real(m, *a))
+    tforward(tm, make_data(tm, 4).replace(qpos=qpos, qvel=qvel, ctrl=ctrl))
+    assert len(seen) == 1 and all(t.is_contiguous() for t in seen[0])
+
+
 def test_solver_constants_header_and_key(go2_rows):
     tm = go2_rows["tm"]
     key = solver_cuda.solver_key(tm, 28)
@@ -336,23 +348,23 @@ def test_solver_constants_header_and_key(go2_rows):
         assert line in header
     assert key == solver_cuda.solver_key(put_model(go2_rows["mj"], dtype=torch.float32), 28), \
         "one library serves both types"
-    assert solver_cuda.in_rows(key) == 958  # and 36 values out: 994 a sample
+    assert solver_cuda.io_values(key) == (958, 36)  # 994 values a sample
     syn = solver_cuda.render_constants_header(solver_cuda.solver_key(solver_cases.synthetic_model(), 12))
-    assert "#define SCI_row_simple {1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1}" in syn and "#define SCI_group_dim {3, 6}" in syn
+    assert "#define SCI_group_row0 {2, 5}" in syn and "#define SCI_group_dim {3, 6}" in syn
+    assert "#define SC_NGROUPS 2" in syn and "#define SC_IMPRATIO 2.0" in syn
     assert 1e4 < solver_cuda.solve_flops(key) < 1e6
     with pytest.raises(ValueError):
         solver_cuda.render_constants_header((6, 12, 2, 4, 1e-8, ((10, 3),), 1.0))
-    packed = solver_cuda.pack_inputs(*_torch_args(go2_rows["rows"]))
-    assert packed.shape == (958, 4) and packed.is_contiguous()
-    assert torch.equal(packed[18 + 1], torch.tensor(go2_rows["rows"]["J"][:, 1, 1]))
 
 
 def test_build_helper_is_shared_and_needs_nvcc(monkeypatch, tmp_path):
     """Both kernels build through cuda_build; without nvcc the build raises
     (there is no other way to a library)."""
     assert engine_cuda._CSRC == cuda_build.CSRC and "newton_solve_team.cuh" in engine_cuda._INCLUDES
-    assert "newton_solve.cuh" not in engine_cuda._INCLUDES
-    assert "newton_solve.cuh" in solver_cuda._INCLUDES
+    assert "newton_solve_team.cuh" in solver_cuda._INCLUDES
+    assert not os.path.exists(os.path.join(cuda_build.CSRC, "newton_solve.cuh"))
+    for name in ("engine_step.cu", "solver_newton.cu", "newton_solve_team.cuh"):
+        assert "ROW_LOOP" not in open(os.path.join(cuda_build.CSRC, name)).read()
     monkeypatch.setenv("DIAL_MPC_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(cuda_build, "find_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -366,65 +378,123 @@ def test_build_helper_is_shared_and_needs_nvcc(monkeypatch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# (d) csrc/solver_newton.cu compiled for the host
+# (d) csrc/solver_newton.cu compiled for the host, a thread a lane
 # ---------------------------------------------------------------------------
 
-_SHIM = """
-#pragma once
-#include <cmath>
-#include <cstddef>
-#define __device__
-#define __forceinline__ inline
-#define __noinline__
-#define __constant__ static const
-#define __global__
-#define __restrict__
-using std::sqrt; using std::fabs;
-struct dim3_ { int x; };
-static thread_local dim3_ blockIdx, blockDim, threadIdx;
-"""
 _HARNESS = """
 #include "solver_newton_nolaunch.cu"
-template <typename T> static void run(const T* in, T* out, int B) {
-  blockDim.x = 1; threadIdx.x = 0;
-  for (int t = 0; t < B; ++t) { blockIdx.x = t; solver_newton_kernel<T>(in, out, B); }
+#include "run_team.h"
+#include <cstring>
+// a: J, M, D, aref, fl, eta, qs, each sample-major; one team a sample, its
+// shared memory pre-filled with the byte fill
+template <typename T> static void run(const T* const* a, T* x, T* qfrc, int B, int fill) {
+  using namespace sc;
+  for (int s = 0; s < B; ++s) {
+    std::vector<unsigned char> shared(sizeof(SolverShared<T>));
+    std::memset(shared.data(), fill, shared.size());
+    run_team([&](int l) {
+      solve_sample<T>(Team{l, 0xffffffffu}, *reinterpret_cast<SolverShared<T>*>(shared.data()),
+                      a[0] + (size_t)s * NEFC * NV, a[1] + (size_t)s * NV * NV, a[2] + (size_t)s * NEFC,
+                      a[3] + (size_t)s * NEFC, a[4] + (size_t)s * NEFC, a[5] + (size_t)s * NEFC,
+                      a[6] + (size_t)s * NV, x + (size_t)s * NV, qfrc + (size_t)s * NV);
+    });
+  }
 }
-extern "C" void run_f64(const double* in, double* out, int B) { run<double>(in, out, B); }
-extern "C" void run_f32(const float* in, float* out, int B) { run<float>(in, out, B); }
-extern "C" int in_rows() { return sc::N_IN_ROWS; }
+#define RUN(name, T) \\
+  extern "C" void name(const T* J, const T* M, const T* D, const T* aref, const T* fl, const T* eta, \\
+                       const T* qs, T* x, T* qfrc, int B, int fill) { \\
+    const T* a[7] = {J, M, D, aref, fl, eta, qs}; \\
+    run<T>(a, x, qfrc, B, fill); \\
+  }
+RUN(run_f64, double)
+RUN(run_f32, float)
+extern "C" int lanes() { return LANES; }
+extern "C" int nv() { return sc::NV; }
 """
+# a program around the harness, for builds that cannot be loaded into Python
+# (ThreadSanitizer): the seven float64 inputs of B samples from a file, solved
+# in float64 and in float32, both results (x, qfrc) into another
+_MAIN = """
+#include "harness.cpp"
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+  using namespace sc;
+  const int B = std::atoi(argv[2]);
+  const size_t n[7] = {(size_t)NEFC * NV, (size_t)NV * NV, NEFC, NEFC, NEFC, NEFC, NV};
+  std::vector<double> in[7];
+  FILE* f = std::fopen(argv[1], "rb");
+  for (int k = 0; k < 7; ++k) {
+    in[k].resize(n[k] * B);
+    if (!f || std::fread(in[k].data(), sizeof(double), in[k].size(), f) != in[k].size()) return 2;
+  }
+  std::fclose(f);
+  std::vector<double> x((size_t)B * NV), q((size_t)B * NV);
+  const double* a[7];
+  for (int k = 0; k < 7; ++k) a[k] = in[k].data();
+  run<double>(a, x.data(), q.data(), B, 0);
+  std::vector<float> in32[7], x32(x.size()), q32(q.size());
+  const float* a32[7];
+  for (int k = 0; k < 7; ++k) {
+    in32[k].assign(in[k].begin(), in[k].end());
+    a32[k] = in32[k].data();
+  }
+  run<float>(a32, x32.data(), q32.data(), B, 0);
+  f = std::fopen(argv[3], "wb");
+  std::fwrite(x.data(), sizeof(double), x.size(), f);
+  std::fwrite(q.data(), sizeof(double), q.size(), f);
+  std::fwrite(x32.data(), sizeof(float), x32.size(), f);
+  std::fwrite(q32.data(), sizeof(float), q32.size(), f);
+  std::fclose(f);
+  return 0;
+}
+"""
+KERNEL_ARGS = ("J", "M", "D", "aref", "fl", "eta", "qs")  # the kernel's order
+SHARED_FILLS = (0x00, 0xFF)  # zeros, and NaN in either type
 
 
-def _build_host_solver(key, d, *flags):
-    """csrc/solver_newton.cu compiled as host C++ (one thread per call) into d."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler")
-    (d / "shim").mkdir()
-    (d / "shim" / "cuda_runtime.h").write_text(_SHIM)
+def _write_host_sources(key, d):
+    host_build.write_shim(d)
     (d / "solver_constants.h").write_text(solver_cuda.render_constants_header(key))
-    src = open(os.path.join(cuda_build.CSRC, "solver_newton.cu")).read()
-    (d / "solver_newton_nolaunch.cu").write_text(src[: src.index("constexpr int THREADS_PER_BLOCK")])
+    (d / "solver_newton_nolaunch.cu").write_text(
+        host_build.source_without_launch("solver_newton.cu", "constexpr int MAX_SAMPLES_PER_BLOCK"))
     (d / "harness.cpp").write_text(_HARNESS)
-    cmd = [gxx, "-O1", *flags, "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-I", str(d / "shim"),
-           "-I", str(d), "-I", cuda_build.CSRC, "-o", str(d / "libh.so"), str(d / "harness.cpp")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    (d / "main.cpp").write_text(_MAIN)
+
+
+def _gxx_cmd(d, *flags, lanes=engine_cuda.LANES):
+    try:
+        return host_build.gxx_command(d, *flags, lanes=lanes)
+    except FileNotFoundError:
+        pytest.skip("no host C++ compiler")
+
+
+def _build_host_solver(key, d, *flags, lanes=engine_cuda.LANES):
+    """csrc/solver_newton.cu compiled as host C++ (a thread a lane) into d."""
+    cmd = _gxx_cmd(d, *flags, lanes=lanes)
+    _write_host_sources(key, d)
+    r = subprocess.run([*cmd, "-shared", "-fPIC", "-o", str(d / "libh.so"), str(d / "harness.cpp")],
+                       capture_output=True, text=True)
     if flags and "unrecognized command-line option" in r.stderr:
         pytest.skip(f"this g++ does not know {flags}")
     assert r.returncode == 0, r.stderr[-4000:]
-    return ctypes.CDLL(str(d / "libh.so"))
+    lib = ctypes.CDLL(str(d / "libh.so"))
+    for fn in (lib.run_f64, lib.run_f32):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
+    assert lib.lanes() == lanes and lib.nv() == key[0]
+    return lib
 
 
-def _run_host_solver(lib, rows, dtype):
+def _run_host_solver(lib, rows, dtype, fill=0):
+    """x and qfrc (B, nv) of the host build, from the rows' float64 arrays
+    rounded to dtype."""
     npdt = np.dtype(dtype)
-    packed = solver_cuda.pack_inputs(*_torch_args(rows)).numpy().astype(npdt)
-    B = packed.shape[1]
-    assert packed.shape[0] == lib.in_rows()
-    nv = rows["qs"].shape[1]
-    out = np.zeros((2 * nv, B), npdt)
+    args = [np.ascontiguousarray(rows[k], dtype=npdt) for k in KERNEL_ARGS]
+    B, nv = rows["qs"].shape
+    x, qfrc = np.zeros((B, nv), npdt), np.zeros((B, nv), npdt)
     fn = lib.run_f64 if dtype == "float64" else lib.run_f32
-    fn(packed.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), B)
-    return out[:nv].T, out[nv:].T
+    fn(*[a.ctypes.data_as(ctypes.c_void_p) for a in (*args, x, qfrc)], B, fill)
+    return x, qfrc
 
 
 @pytest.fixture(scope="module")
@@ -440,23 +510,47 @@ def host_cases(go2_rows, synthetic):
 
 @pytest.fixture(scope="module")
 def host_solvers(host_cases, tmp_path_factory):
-    return {name: _build_host_solver(case[0], tmp_path_factory.mktemp("host_" + name))
-            for name, case in host_cases.items()}
+    """name -> {lanes: library}, built at first use"""
+    libs = {name: {} for name in host_cases}
+
+    def get(name, lanes=engine_cuda.LANES):
+        if lanes not in libs[name]:
+            d = tmp_path_factory.mktemp(f"host_{name}_{lanes}")
+            libs[name][lanes] = _build_host_solver(host_cases[name][0], d, lanes=lanes)
+        return libs[name][lanes]
+
+    return get
+
+
+def _assert_host_matches_plain(host_cases, case, x, f, dtype):
+    """1e-9 at float64; float32 arithmetic against the float64 plain version
+    to 1e-3 of the accelerations' size (the Hessian's conditioning amplifies
+    the 6e-8 roundings)."""
+    _, _, x_ref, f_ref = host_cases[case]
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    np.testing.assert_allclose(x / scale, x_ref / scale, atol=tol)
+    np.testing.assert_allclose(f / scale, f_ref / scale, atol=tol)
 
 
 @pytest.mark.parametrize("case", ["go2", "synthetic"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_solver_source_on_host_matches_plain_version(host_cases, host_solvers, case, dtype):
-    """The kernel's arithmetic, checked where there is no nvcc and no card:
-    1e-9 at float64; float32 arithmetic against the float64 plain version to
-    1e-3 of the accelerations' size (the Hessian's conditioning amplifies
-    the 6e-8 roundings)."""
-    _, rows, x_ref, f_ref = host_cases[case]
-    x, f = _run_host_solver(host_solvers[case], rows, dtype)
-    scale = max(1.0, float(np.abs(x_ref).max()))
-    tol = 1e-9 if dtype == "float64" else 1e-3
-    np.testing.assert_allclose(x / scale, x_ref / scale, atol=tol)
-    np.testing.assert_allclose(f / scale, f_ref / scale, atol=tol)
+    """The kernel's arithmetic, checked where there is no nvcc and no card."""
+    x, f = _run_host_solver(host_solvers(case), host_cases[case][1], dtype)
+    _assert_host_matches_plain(host_cases, case, x, f, dtype)
+
+
+@pytest.mark.parametrize("lanes", [16, 8])
+@pytest.mark.parametrize("case", ["go2", "synthetic"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_solver_source_with_fewer_lanes_matches_plain_version(host_cases, host_solvers, lanes, case, dtype):
+    """The team size is a compile-time constant. At 16 lanes a Go2 lane owns
+    two rows and two dofs; at 8 lanes the synthetic problem's elliptic groups
+    span rows of two and three lanes and each lane holds more Hessian
+    entries: the same function all the same."""
+    x, f = _run_host_solver(host_solvers(case, lanes), host_cases[case][1], dtype)
+    _assert_host_matches_plain(host_cases, case, x, f, dtype)
 
 
 @pytest.fixture(scope="module")
@@ -472,10 +566,48 @@ def host_solvers_prefilled(host_cases, tmp_path_factory):
 @pytest.mark.parametrize("case", ["go2", "synthetic"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_solver_source_reads_no_uninitialised_value(host_cases, host_solvers, host_solvers_prefilled, case, dtype):
-    """Whatever the kernel's local variables held before, the outputs are the
-    same bit for bit."""
+    """Whatever the kernel's local variables and the team's shared memory held
+    before (zeros, NaN), the outputs are the same bit for bit."""
     rows = host_cases[case][1]
-    plain = _run_host_solver(host_solvers[case], rows, dtype)
-    for lib in host_solvers_prefilled[case]:
-        for a, b in zip(_run_host_solver(lib, rows, dtype), plain):
+    plain = _run_host_solver(host_solvers(case), rows, dtype)
+    for lib in (host_solvers(case), *host_solvers_prefilled[case]):
+        for fill in SHARED_FILLS:
+            for a, b in zip(_run_host_solver(lib, rows, dtype, fill), plain):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case,lanes", [("go2", 32), ("synthetic", 32), ("synthetic", 8)])
+def test_solver_source_has_no_data_race(host_cases, host_solvers, tmp_path, case, lanes):
+    """ThreadSanitizer over the lane-emulating host build, three samples in
+    both types: no lane reads or writes a value another lane writes in the
+    same phase (between two team syncs). Shuffles are barriers on the host,
+    so this cannot see a missing sync that a shuffle stands in for. The
+    outputs equal the plain host build's."""
+    key, rows = host_cases[case][:2]
+    cmd = _gxx_cmd(tmp_path, "-fsanitize=thread", "-g", lanes=lanes)
+    _write_host_sources(key, tmp_path)
+    r = subprocess.run([*cmd, "-o", str(tmp_path / "tsan"), str(tmp_path / "main.cpp")],
+                       capture_output=True, text=True)
+    if r.returncode != 0 and ("tsan" in r.stderr or "sanitize" in r.stderr):
+        pytest.skip(f"this toolchain has no ThreadSanitizer: {r.stderr[-300:]}")
+    assert r.returncode == 0, r.stderr[-4000:]
+    nb = 3
+    few = {k: rows[k][:nb] for k in KERNEL_ARGS}
+    np.concatenate([np.ascontiguousarray(few[k], np.float64).ravel() for k in KERNEL_ARGS]).tofile(tmp_path / "in.bin")
+    run = subprocess.run(
+        [str(tmp_path / "tsan"), str(tmp_path / "in.bin"), str(nb), str(tmp_path / "out.bin")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "TSAN_OPTIONS": "halt_on_error=1 exitcode=66"},
+    )
+    if "unexpected memory mapping" in run.stderr:
+        pytest.skip("ThreadSanitizer cannot run under this kernel's memory layout")
+    assert "ThreadSanitizer" not in run.stderr and run.returncode == 0, run.stderr[-6000:]
+    raw = (tmp_path / "out.bin").read_bytes()
+    nv = key[0]
+    n = nb * nv
+    x64, q64 = np.frombuffer(raw[: 2 * n * 8], np.float64).reshape(2, nb, nv)
+    x32, q32 = np.frombuffer(raw[2 * n * 8 :], np.float32).reshape(2, nb, nv)
+    lib = host_solvers(case, lanes)
+    for dtype, got in (("float64", (x64, q64)), ("float32", (x32, q32))):
+        for a, b in zip(got, _run_host_solver(lib, few, dtype)):
             np.testing.assert_array_equal(a, b)
