@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N] [--compare-only]
+    python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N]
+        [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N] [--compare-only]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
   2. build of every kernel's library from dial_mpc_tpu_torch/csrc, all nvcc
-     runs started together: the step kernel, and the solver kernel for the
-     Go2 flat scene's key and for a synthetic key with elliptic groups;
-  3. each kernel against its plain PyTorch version on the card:
-     - the step kernel: Go2 flat scene, a contact-rich batch, B = 2049 and
-       B = 1, float64 and float32, n_steps = 4 against four sequential
-       launches, and two launches on the same inputs (bit for bit); its
-       occupancy (teams per SM) and ptxas numbers by type;
+     runs started together: the step kernel and the solver kernel for each
+     scene of the legged tasks (Go2 flat, H1 walk, H1 loco, Go2 crate, H1 push
+     crate), and the solver kernel for a synthetic key with elliptic groups;
+  3. each kernel against its plain PyTorch version on the card, for each
+     scene on a contact-rich batch (on the crate scenes posed against the
+     crate, and the states with a box contact counted):
+     - the step kernel: B = 2049 and B = 1, float64 and float32, n_steps = 4
+       against four sequential launches, and two launches on the same inputs
+       (bit for bit); the states at a joint limit counted; its occupancy
+       (samples a block, teams per SM), shared memory and ptxas numbers by
+       type, and its time beside its bound;
      - the solver kernel: the constraint rows of the same batch (at-limit
-       states included and counted), B = 2049 and B = 1, float64 and float32,
-       and the synthetic problem of tools/solver_cases.py, which puts rows in
-       every branch (friction loss on both sides of its clamp, elliptic
-       groups of dimension 3 and 6 in every zone, counted); two launches on
-       the same inputs (bit for bit); its occupancy and ptxas numbers by type;
+       states included and counted), B = 2049 and B = 1, float64 and float32;
+       on the Go2 flat scene also the synthetic problem of
+       tools/solver_cases.py, which puts rows in every branch (friction loss
+       on both sides of its clamp, elliptic groups of dimension 3 and 6 in
+       every zone, counted), two launches on the same inputs (bit for bit),
+       its occupancy and ptxas numbers;
      - the fused route (step kernel) against the unfused one (plain stages
        with the solver kernel) on the same states, float64;
-     - the whole planner on a small input, card against CPU;
+     - the whole planner on a small input, card against CPU (Go2 trot);
   4. the paths, each through dial_mpc_tpu_torch.core.runner.run at the
      shipped width, float32, with the number of control steps cut and the
      launch counts checked: Go2 trot on the fused route (--steps), Go2 trot
-     on the unfused route (--unfused-steps), Go2 seq-jump on the fused route
-     (--jump-steps);
+     on the unfused route (--unfused-steps), Go2 seq-jump (--jump-steps), H1
+     jog (--jog-steps), H1 loco (--loco-steps), Go2 crate climb
+     (--crate-steps) and H1 push crate (--push-steps) on the fused route;
   5. the kernels' times beside their bounds.
 The last line is {"ok": true, "device": {...}}. With --compare-only the
 script stops after phase 3 and prints no such line.
@@ -49,16 +56,19 @@ import yaml
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
+import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core import runner
 from dial_mpc_tpu_torch.physics import (
     cuda_build, engine_cuda, forward, make_data, put_model, solver, solver_cuda, step,
 )
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
 from dial_mpc_tpu_torch.tools import solver_cases
+from dial_mpc_tpu_torch.tools.scene_cases import SCENES, box_slots, start_qpos
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path
 
 DEVICE = "cuda"
-B_FULL = 2049  # Nsample + 1 rollouts of the shipped trot config
+B_FULL = 2049  # Nsample + 1 rollouts of the shipped configs
+
 H100_FP32_FLOPS = 67e12  # dense float32 outside the tensor cores, published peak
 H100_HBM_BYTES_PER_S = 3.35e12
 
@@ -101,30 +111,83 @@ def sh(cmd):
     return subprocess.run(cmd, shell=True, capture_output=True, text=True).stdout.strip()
 
 
-def contact_rich_batch(mj, model, batch, seed=0, settle=5):
-    """States settled into contact by the plain step under random ctrl."""
+def ctrl_bound(mj):
+    """Random ctrl is uniform in +/- this, per actuator: 8 where the motor is
+    unlimited (the Go2's), a quarter of its range where it is limited (the
+    H1's, up to 300 N m)."""
+    return np.where(np.asarray(mj.actuator_ctrllimited) > 0,
+                    0.25 * np.abs(np.asarray(mj.actuator_ctrlrange)).max(1), 8.0)
+
+
+def contact_rich_batch(name, mj, model, batch, seed=0, settle=5):
+    """States settled into contact by the plain step under random ctrl, from
+    the scene's start poses (tools/scene_cases.py; Go2 flat is the one the
+    kernels line reports)."""
     rng = np.random.default_rng(seed)
     dtype = model.dtype
-    qpos = np.tile(np.asarray(mj.key_qpos[0], np.float64), (batch, 1))
-    qpos += rng.normal(0, 0.01, qpos.shape)
-    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    qpos = start_qpos(name, mj, batch, rng)
+    hi = ctrl_bound(mj)
 
     def t(a):
         return torch.tensor(a, dtype=dtype, device=DEVICE)
 
     d = make_data(model, batch).replace(qpos=t(qpos), qvel=t(rng.normal(0, 0.2, (batch, mj.nv))))
     for _ in range(settle):
-        d = step(model, d.replace(ctrl=t(rng.uniform(-8.0, 8.0, (batch, mj.nu)))), solver.solve_reference)
+        d = step(model, d.replace(ctrl=t(rng.uniform(-hi, hi, (batch, mj.nu)))), solver.solve_reference)
     require(bool(torch.isfinite(d.qpos).all()), "settle rollout diverged")
-    return d.qpos.contiguous(), d.qvel.contiguous(), t(rng.uniform(-8.0, 8.0, (batch, mj.nu)))
+    return d.qpos.contiguous(), d.qvel.contiguous(), t(rng.uniform(-hi, hi, (batch, mj.nu)))
 
 
-def compare(model, outs, refs, tol, tol_default, what):
+def beyond_limits(model, qpos):
+    """(B,) whether a limited joint of each state lies beyond its range."""
+    lim = [j for j in range(model.njnt) if model.jnt_limited[j]]
+    q = qpos[:, [model.jnt_qposadr[j] for j in lim]]
+    jr = model.jnt_range[lim]
+    return ((q < jr[:, 0]) | (q > jr[:, 1])).any(-1)
+
+
+# Float32 rounding can flip a branch of the step where a state sits on its
+# edge (a contact or a joint limit at its activation distance, two candidate
+# corners at the same depth): the float32 plain version then departs from the
+# float64 one as far as the kernel does. Such a sample is held to the float32
+# plain version on the same inputs instead, with the same tolerances; at most
+# this many samples of a batch may be such (no batch has shown more than 2).
+MAX_FLIPPED = 4
+
+
+def worst_over_limit(specs, limits, outs, refs, i):
+    """(output, error, limit) of sample i's output farthest over its limit."""
+    errs = [(float((a[i].double() - b[i].double()).abs().max()), limit, name)
+            for (name, _), limit, a, b in zip(specs, limits, outs, refs)]
+    err, limit, name = max(errs, key=lambda e: e[0] / e[1])
+    return {"output": name, "err": err, "limit": limit}
+
+
+def compare(model, outs, refs, tol, tol_default, what, plain32=None, flips=None):
+    """Worst error of each output against refs; raises beyond the tolerance.
+    With plain32 (the float32 plain version's outputs), the samples where it
+    departs from refs beyond the tolerance are held to it instead (see
+    MAX_FLIPPED); flips[what] lists each such sample with the kernel's and the
+    float32 plain version's worst error against float64, so that a flipped
+    branch (both depart alike) can be told from a drift."""
+    specs = engine_cuda.out_specs(model)
+    limits = [tol.get(name, tol_default) for name, _ in specs]
     worst = {}
-    for (name, _), a, b in zip(engine_cuda.out_specs(model), outs, refs):
+    if plain32 is not None:
+        flipped = torch.zeros(refs[0].shape[0], dtype=torch.bool, device=refs[0].device)
+        for limit, p, b in zip(limits, plain32, refs):
+            flipped |= ~((p.double() - b.double()).abs().max(-1).values <= limit)
+        flips[what] = [
+            {"sample": i, "kernel_vs_f64": worst_over_limit(specs, limits, outs, refs, i),
+             "plain32_vs_f64": worst_over_limit(specs, limits, plain32, refs, i)}
+            for i in flipped.nonzero().flatten().tolist()
+        ]
+        refs = [torch.where(flipped[:, None], p.double(), b.double()) for p, b in zip(plain32, refs)]
+        if len(flips[what]) > MAX_FLIPPED:
+            raise AssertionError(f"{what}: float32 flips a branch in {len(flips[what])} samples")
+    for (name, _), limit, a, b in zip(specs, limits, outs, refs):
         err = float((a.double() - b.double()).abs().max())
         worst[name] = err
-        limit = tol.get(name, tol_default)
         if not (err <= limit):  # also catches NaN
             raise AssertionError(f"{what}: {name} differs by {err:.3e} > {limit:.1e}")
     return worst
@@ -140,22 +203,27 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def phase_compare(mj):
-    """Phase 3; returns what phase 5 needs."""
+def phase_compare(name, mj):
+    """Phase 3, kernel E on one scene; returns what phase 5 needs."""
     m64 = put_model(mj, device=DEVICE, dtype=torch.float64)
     m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
-    qpos, qvel, ctrl = contact_rich_batch(mj, m64, B_FULL)
-    errs = {}
+    qpos, qvel, ctrl = contact_rich_batch(name, mj, m64, B_FULL)
+    errs, flips = {}, {}
 
     ref1 = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1)
     out1 = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049"] = compare(m64, out1, ref1, TOL_F64, TOL_F64_DEFAULT, "f64 B=2049")
+    errs["f64_B2049"] = compare(m64, out1, ref1, TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 B=2049")
+    counts = {"samples_in_contact": int((out1[8][:, : m64.ncon] < 0).any(-1).sum())}
+    require(counts["samples_in_contact"] > 0, f"{name}: no sample of the batch is in contact")
+    if box_slots(m64.pair_table):
+        counts["samples_touching_a_box"] = int((out1[8][:, box_slots(m64.pair_table)] < 0).any(-1).sum())
+        require(counts["samples_touching_a_box"] > 0, f"{name}: no sample of the batch touches a box")
 
     one = engine_cuda.step_core(m64, qpos[:1], qvel[:1], ctrl[:1], 1)
     torch.cuda.synchronize()
     errs["f64_B1"] = compare(
-        m64, one, [r[:1] for r in ref1], TOL_F64, TOL_F64_DEFAULT, "f64 B=1"
+        m64, one, [r[:1] for r in ref1], TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 B=1"
     )
 
     # four steps under constant ctrl drive joints into their limits: the
@@ -166,25 +234,25 @@ def phase_compare(mj):
     for _ in range(3):
         seq = engine_cuda.step_core(m64, seq[0].contiguous(), seq[1].contiguous(), ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049_n4"] = compare(m64, out4, ref4, TOL_F64, TOL_F64_DEFAULT, "f64 n_steps=4")
-    jr = m64.jnt_range[1:]
-    q_before_last = engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)[0][:, 7:]
-    n_limit = int(((q_before_last < jr[:, 0]) | (q_before_last > jr[:, 1])).any(-1).sum())
+    errs["f64_B2049_n4"] = compare(m64, out4, ref4, TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 n_steps=4")
+    n_limit = int(beyond_limits(m64, engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)[0]).sum())
     if n_limit == 0:
-        raise AssertionError("no sample of the batch reached a joint limit")
-    for name, a, b in zip(engine_cuda.OUTPUT_NAMES, out4, seq):
+        raise AssertionError(f"{name}: no sample of the batch reached a joint limit")
+    for out_name, a, b in zip(engine_cuda.OUTPUT_NAMES, out4, seq):
         if not torch.equal(a, b):
-            raise AssertionError(f"n_steps=4 differs from four launches in {name}")
+            raise AssertionError(f"{name}: n_steps=4 differs from four launches in {out_name}")
 
     q32, v32, c32 = qpos.float(), qvel.float(), ctrl.float()
     out32 = engine_cuda.step_core(m32, q32, v32, c32, 1)
     ref32 = engine_cuda.step_core_reference(m64, q32.double(), v32.double(), c32.double(), 1)
+    plain32 = engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
     torch.cuda.synchronize()
-    errs["f32_B2049"] = compare(m32, out32, ref32, TOL_F32, TOL_F32_DEFAULT, "f32 B=2049")
+    errs["f32_B2049"] = compare(m32, out32, ref32, TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 B=2049", plain32, flips)
     one32 = engine_cuda.step_core(m32, q32[:1], v32[:1], c32[:1], 1)
     torch.cuda.synchronize()
     errs["f32_B1"] = compare(
-        m32, one32, [r[:1] for r in ref32], TOL_F32, TOL_F32_DEFAULT, "f32 B=1"
+        m32, one32, [r[:1] for r in ref32], TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 B=1",
+        [p[:1] for p in plain32], flips,
     )
     # the float32 kernel on the states that sit at joint limits (after three steps)
     at_limit = engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)
@@ -193,31 +261,34 @@ def phase_compare(mj):
     ref32_l = engine_cuda.step_core_reference(
         m64, ql.float().double(), vl.float().double(), c32.double(), 1
     )
+    plain32_l = engine_cuda.step_core_reference(m32, ql.float(), vl.float(), c32, 1)
     torch.cuda.synchronize()
     errs["f32_B2049_at_limits"] = compare(
-        m32, out32_l, ref32_l, TOL_F32, TOL_F32_DEFAULT, "f32 at joint limits"
+        m32, out32_l, ref32_l, TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 at joint limits", plain32_l, flips
     )
     out32_4 = engine_cuda.step_core(m32, q32, v32, c32, 4)
     seq32 = out32
     for _ in range(3):
         seq32 = engine_cuda.step_core(m32, seq32[0].contiguous(), seq32[1].contiguous(), c32, 1)
     torch.cuda.synchronize()
-    for name, a, b in zip(engine_cuda.OUTPUT_NAMES, out32_4, seq32):
+    for out_name, a, b in zip(engine_cuda.OUTPUT_NAMES, out32_4, seq32):
         if not torch.equal(a, b):
-            raise AssertionError(f"float32 n_steps=4 differs from four launches in {name}")
+            raise AssertionError(f"{name}: float32 n_steps=4 differs from four launches in {out_name}")
 
     # two launches on the same inputs, the same bits: the team's sums have a
     # fixed order and no lane reads what another writes in the same phase
-    for name, model, args in (("float64", m64, (qpos, qvel, ctrl)), ("float32", m32, (q32, v32, c32))):
+    for kind, model, args in (("float64", m64, (qpos, qvel, ctrl)), ("float32", m32, (q32, v32, c32))):
         a = engine_cuda.step_core(model, *args, 1)
         b = engine_cuda.step_core(model, *args, 1)
         torch.cuda.synchronize()
         for out_name, x, y in zip(engine_cuda.OUTPUT_NAMES, a, b):
             if not torch.equal(x, y):
-                raise AssertionError(f"{name}: two launches on the same inputs differ in {out_name}")
+                raise AssertionError(f"{name}, {kind}: two launches on the same inputs differ in {out_name}")
 
     emit(
-        "compare", ok=True, samples_at_joint_limit=n_limit, repeat_launch_bit_equal=True,
+        "compare", ok=True, scene=name, samples_at_joint_limit=n_limit, **counts,
+        samples_float32_flips_a_branch=flips, max_flipped=MAX_FLIPPED,
+        repeat_launch_bit_equal=True,
         tolerance={"f64": {**TOL_F64, "rest": TOL_F64_DEFAULT}, "f32": {**TOL_F32, "rest": TOL_F32_DEFAULT}},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
         n_steps4_equals_four_launches=True,
@@ -262,6 +333,8 @@ def phase_compare(mj):
         plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, bytes=nbytes, flops=flops,
         kernel_b1_ms=kernel_b1_ms, kernel64_ms=kernel64_ms, lanes=lib.lanes,
         teams_per_sm={"float32": lib.teams_per_sm(torch.float32), "float64": lib.teams_per_sm(torch.float64)},
+        samples_per_block={"float32": lib.launch_shape(torch.float32)[0],
+                           "float64": lib.launch_shape(torch.float64)[0]},
         team_shared_bytes={"float32": lib.team_bytes(torch.float32), "float64": lib.team_bytes(torch.float64)},
         ptxas=kernel_ptxas(lib, "engine_step_kernel"),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -304,39 +377,57 @@ def solver_errors(outs, refs, tol, what, relative=False):
     return worst
 
 
-def phase_solver_compare(m64, m32, states):
-    """Phase 3, kernel S; returns what phase 5 needs."""
+def phase_solver_compare(scene, m64, m32, states):
+    """Phase 3, kernel S on one scene's rows (and, with the Go2 flat scene,
+    the synthetic problem); returns what phase 5 needs."""
     errs, counts = {}, {}
-    n_rows_limit = len(engine_cuda.static_layout(m64)["limit_jnt"])
+    lay = engine_cuda.static_layout(m64)
+    r0 = len(lay["fric_dof"])  # rows: friction loss, limits from r0, contacts from r1
+    r1 = r0 + len(lay["limit_jnt"])
 
-    # ---- Go2 rows: settled (contact-rich) and at-limit states ----
+    # ---- the scene's rows: settled (contact-rich) and at-limit states ----
     for name, (qpos, qvel, ctrl) in (("settled", states["settled"]), ("at_limits", states["at_limits"])):
         args, refs = solver_rows(m64, qpos, qvel, ctrl)
         D = args[1]
         counts[name] = dict(
-            samples_with_active_limit_row=int((D[:, :n_rows_limit] > 0).any(-1).sum()),
-            samples_with_active_contact_row=int((D[:, n_rows_limit:] > 0).any(-1).sum()),
+            samples_with_active_limit_row=int((D[:, r0:r1] > 0).any(-1).sum()),
+            samples_with_active_contact_row=int((D[:, r1:] > 0).any(-1).sum()),
         )
+        if r0:
+            counts[name]["samples_with_friction_loss_row"] = int((D[:, :r0] > 0).any(-1).sum())
         outs = solver_cuda.solve_batched(m64, *args)
         torch.cuda.synchronize()
-        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, TOL_SOLVER_F64, f"f64 {name}")
+        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, TOL_SOLVER_F64, f"{scene} f64 {name}")
         one = solver_cuda.solve_batched(m64, *[a[:1] for a in args])
         torch.cuda.synchronize()
-        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], TOL_SOLVER_F64, f"f64 B=1 {name}")
+        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], TOL_SOLVER_F64, f"{scene} f64 B=1 {name}")
         args32 = tuple(a.float() for a in args)
         refs32 = solver_cuda.solve_batched_reference(m64, *[a.double() for a in args32])
         outs32 = solver_cuda.solve_batched(m32, *args32)
         torch.cuda.synchronize()
-        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, TOL_SOLVER_F32, f"f32 {name}")
+        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, TOL_SOLVER_F32, f"{scene} f32 {name}")
         one32 = solver_cuda.solve_batched(m32, *[a[:1] for a in args32])
         torch.cuda.synchronize()
-        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], TOL_SOLVER_F32, f"f32 B=1 {name}")
+        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], TOL_SOLVER_F32, f"{scene} f32 B=1 {name}")
         if name == "settled":
             timing_args, timing_args32 = args, args32
-    require(counts["at_limits"]["samples_with_active_limit_row"] > 0, "no sample has an active joint-limit row")
-    require(counts["settled"]["samples_with_active_contact_row"] > 0, "no sample is in contact")
+    require(counts["at_limits"]["samples_with_active_limit_row"] > 0, f"{scene}: no sample has an active joint-limit row")
+    require(counts["settled"]["samples_with_active_contact_row"] > 0, f"{scene}: no sample is in contact")
+    if scene == "go2":
+        zones = phase_synthetic_solver(errs)
+    else:
+        zones = None
 
-    # ---- the synthetic problem: every row kind, every zone ----
+    emit(
+        "solver_compare", ok=True, scene=scene, rows=counts, synthetic_samples=zones,
+        tolerance={"f64": TOL_SOLVER_F64, "f32": TOL_SOLVER_F32, "synthetic_relative": TOL_SYNTHETIC},
+        max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
+    )
+    return solver_timing(scene, m64, m32, timing_args, timing_args32, errs)
+
+
+def phase_synthetic_solver(errs):
+    """The synthetic problem: every row kind, every zone."""
     rows = solver_cases.synthetic_problem(seed=0, batch=B_FULL)
     zones = {}
     for gi, (row0, dim) in enumerate(solver_cases.SPEC["groups"]):
@@ -361,13 +452,11 @@ def phase_solver_compare(m64, m32, states):
         errs[f"synthetic_{name}_B1"] = solver_errors(
             one, [r[:1] for r in ref], TOL_SYNTHETIC[name], f"synthetic {name} B=1", relative=True
         )
+    return zones
 
-    emit(
-        "solver_compare", ok=True, go2_rows=counts, synthetic_samples=zones,
-        tolerance={"f64": TOL_SOLVER_F64, "f32": TOL_SOLVER_F32, "synthetic_relative": TOL_SYNTHETIC},
-        max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
-    )
 
+def solver_timing(scene, m64, m32, timing_args, timing_args32, errs):
+    """Repeat launches bit for bit, and the times at this scene's rows."""
     # two launches on the same inputs, the same bits: the team's sums have a
     # fixed order and no lane reads what another writes in the same phase
     for model, a in ((m64, timing_args), (m32, timing_args32)):
@@ -375,10 +464,10 @@ def phase_solver_compare(m64, m32, states):
         second = solver_cuda.solve_batched(model, *a)
         torch.cuda.synchronize()
         for out_name, x, y in zip(("x", "qfrc"), first, second):
-            require(torch.equal(x, y), f"solver kernel, {a[0].dtype}: two launches differ in {out_name}")
-    emit("solver_repeat_launch", ok=True, bit_equal=True, dtypes=["float64", "float32"], B=B_FULL)
+            require(torch.equal(x, y), f"solver kernel, {scene}, {a[0].dtype}: two launches differ in {out_name}")
+    emit("solver_repeat_launch", ok=True, scene=scene, bit_equal=True, dtypes=["float64", "float32"], B=B_FULL)
 
-    # ---- timings at the unfused path's shape: Go2 rows, B = 2049, float32 ----
+    # ---- timings at the unfused path's shape: the scene's rows, B = 2049, float32 ----
     key = solver_cuda.solver_key(m32, timing_args32[0].shape[1])
     lib = solver_cuda.load_library(key)
     for _ in range(5):
@@ -427,7 +516,7 @@ def phase_solver_compare(m64, m32, states):
     )
 
 
-def phase_fused_vs_unfused(m64, states):
+def phase_fused_vs_unfused(scene, m64, states):
     """The same states and controls through the step kernel and through the
     plain stages with the solver kernel, float64, inside phase 3's tolerances."""
     errs = {}
@@ -437,16 +526,15 @@ def phase_fused_vs_unfused(m64, states):
         fused = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
         unfused = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1, solver.solve)
         torch.cuda.synchronize()
-        errs[name] = compare(m64, fused, unfused, TOL_F64, TOL_F64_DEFAULT, f"fused vs unfused, {name}")
+        errs[name] = compare(m64, fused, unfused, TOL_F64, TOL_F64_DEFAULT, f"{scene}: fused vs unfused, {name}")
     require(solver_cuda.solve_batched.launches == before + 2, "the unfused step did not launch the solver kernel")
-    emit("fused_vs_unfused", ok=True, samples_at_joint_limit=states["n_limit"],
+    emit("fused_vs_unfused", ok=True, scene=scene, samples_at_joint_limit=states["n_limit"],
          max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs)
 
 
 def phase_small_input():
     """The whole planner on a small input: the card (kernel) against the CPU
     (plain physics), float64, with the same injected noise."""
-    import dial_mpc_tpu_torch.envs as dial_envs
     from dial_mpc_tpu_torch.core.dial_config import DialConfig
     from dial_mpc_tpu_torch.core.dial_core import MBDPI
     from dial_mpc_tpu_torch.utils.io_utils import load_dataclass_from_dict
@@ -482,6 +570,10 @@ def phase_small_input():
 WIDTHS = {
     "unitree_go2_trot": dict(Nsample=2048, Hsample=16, Hnode=4, Ndiffuse=2, Ndiffuse_init=10),
     "unitree_go2_seq_jump": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=2, Ndiffuse_init=10),
+    "unitree_h1_jog": dict(Nsample=2048, Hsample=25, Hnode=5, Ndiffuse=4, Ndiffuse_init=10),
+    "unitree_h1_loco": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
+    "unitree_go2_crate_climb": dict(Nsample=2048, Hsample=25, Hnode=5, Ndiffuse=4, Ndiffuse_init=10),
+    "unitree_h1_push_crate": dict(Nsample=2048, Hsample=24, Hnode=6, Ndiffuse=4, Ndiffuse_init=10),
 }
 
 
@@ -519,15 +611,18 @@ def phase_path(example, engine, n_steps, same_as=None):
 
     states = np.load(summary["states_path"])
     shutil.rmtree(out_dir)
-    qpos = states[:, 1:20]
-    require(states.shape == (n_steps, 1 + 19 + 18 + 12), states.shape)
+    final = summary["state"]
+    nq, nv, nu = (final.pipeline_state.qpos.shape[1], final.pipeline_state.qvel.shape[1],
+                  final.pipeline_state.ctrl.shape[1])
+    require(states.shape == (n_steps, 1 + nq + nv + nu), states.shape)
+    qpos = states[:, 1 : 1 + nq]
     require(np.isfinite(states).all(), "non-finite state")
     require(np.isfinite(summary["rews"]).all(), "non-finite reward")
     require(np.isfinite(summary["rews_plan"]).all(), "non-finite planned reward")
+    advance = float(qpos[-1, 0] - qpos[0, 0])
     extra = {}
     if example == "unitree_go2_trot":  # still walking
         require(qpos[:, 2].min() > 0.18, f"base fell to {qpos[:, 2].min():.3f} m")
-        advance = float(qpos[-1, 0] - qpos[0, 0])
         if n_steps >= 50:
             require(advance > 0.05, f"base x advanced only {advance:.3f} m")
         if same_as is not None:
@@ -539,15 +634,25 @@ def phase_path(example, engine, n_steps, same_as=None):
             extra["max_qpos_diff_to_other_route"] = float(np.abs(qpos[:n] - same_as[:n]).max())
             require(extra["max_qpos_diff_to_other_route"] <= 0.02,
                     f"the routes part by {extra['max_qpos_diff_to_other_route']:.3e}")
-    else:  # seq-jump: alive, and the stage clock advances every jump_dt / dt steps
+    elif example == "unitree_go2_seq_jump":  # alive, and the stage clock advances every jump_dt / dt steps
         require(qpos[:, 2].min() > 0.1, f"base fell to {qpos[:, 2].min():.3f} m")
-        info = summary["state"].info
+        info = final.info
         stage, step = int(info["contact_stage"][0]), int(info["step"][0])
         n_stage = info["pose_target_sequence"].shape[1]
         require(step == n_steps, f"env step count {step} != {n_steps}")
         require(stage == min(int(n_steps * cfg["dt"] / cfg["jump_dt"]), n_stage - 1), f"contact_stage {stage}")
         require(stage >= 1 or n_steps * cfg["dt"] < cfg["jump_dt"], "contact_stage did not advance")
-        extra = dict(contact_stage=stage, done=float(summary["state"].done[0]))
+        extra = dict(contact_stage=stage, done=float(final.done[0]))
+    elif example == "unitree_go2_crate_climb":  # the base stays up
+        require(qpos[:, 2].min() > 0.12, f"base fell to {qpos[:, 2].min():.3f} m")
+    else:  # an H1 task: standing (pelvis and, at the end, torso above 0.6 m)
+        scene = load_scene("unitree_h1", dial_envs.get_env_class(cfg["env_name"]).scene)
+        torso_z = float(final.pipeline_state.x_pos[0, scene.body_id("torso_link") - 1, 2])
+        require(qpos[:, 2].min() > 0.6, f"pelvis fell to {qpos[:, 2].min():.3f} m")
+        require(torso_z > 0.6, f"torso at {torso_z:.3f} m")
+        extra["torso_z_final"] = torso_z
+        if example == "unitree_h1_jog" and n_steps >= 30:  # and jogging forward
+            require(advance > 0.02, f"base x advanced only {advance:.3f} m")
     step_ms = sorted(1e3 / f for f in summary["freqs"][1:])
     emit(
         "path", ok=True, example=example, engine=engine, n_steps=n_steps, **width, dtype="float32",
@@ -556,22 +661,26 @@ def phase_path(example, engine, n_steps, same_as=None):
         launches_per_step=1 + per_level * cfg["Ndiffuse"],
         first_step_ms=1e3 / summary["freqs"][0], control_step_ms_median=step_ms[len(step_ms) // 2],
         control_step_ms_p90=step_ms[int(len(step_ms) * 0.9)], mean_reward=summary["mean_reward"],
-        base_x_final=float(qpos[-1, 0]), base_z_min=float(qpos[:, 2].min()), wall_s=wall, **extra,
+        base_x_final=float(qpos[-1, 0]), base_x_advance=advance, base_z_min=float(qpos[:, 2].min()),
+        wall_s=wall, **extra,
     )
-    return launches[mine], step_ms[len(step_ms) // 2], qpos
+    return dict(launches=launches[mine], step_ms=step_ms[len(step_ms) // 2],
+                p90_ms=step_ms[int(len(step_ms) * 0.9)], first_ms=1e3 / summary["freqs"][0], qpos=qpos)
 
 
-def build_all(mj):
-    """Phase 2: every library of the paths below, all nvcc runs started together."""
-    m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
-    nefc = engine_cuda.static_layout(m32)["j_sup"].shape[0]
-    jobs = {
-        "engine_step": lambda: engine_cuda.load_library(m32),
-        "solver_newton[go2]": lambda: solver_cuda.load_library(solver_cuda.solver_key(m32, nefc)),
-        "solver_newton[synthetic]": lambda: solver_cuda.load_library(
-            solver_cuda.solver_key(solver_cases.synthetic_model(DEVICE), solver_cases.SPEC["nefc"])
-        ),
-    }
+def build_all(models):
+    """Phase 2: every library of the paths below, all nvcc runs started
+    together: the step kernel and the solver kernel for each scene, and the
+    solver kernel for the synthetic key."""
+    jobs = {}
+    for name, m32 in models.items():
+        nefc = engine_cuda.static_layout(m32)["j_sup"].shape[0]
+        jobs[f"engine_step[{name}]"] = lambda m32=m32: engine_cuda.load_library(m32)
+        jobs[f"solver_newton[{name}]"] = lambda m32=m32, nefc=nefc: solver_cuda.load_library(
+            solver_cuda.solver_key(m32, nefc))
+    jobs["solver_newton[synthetic]"] = lambda: solver_cuda.load_library(
+        solver_cuda.solver_key(solver_cases.synthetic_model(DEVICE), solver_cases.SPEC["nefc"])
+    )
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -586,11 +695,27 @@ def build_all(mj):
     )
 
 
+def key_record(t, scene_model):
+    """What the kernels line keeps of one key's timing."""
+    return dict(
+        nv=scene_model.nv, nefc=int(engine_cuda.static_layout(scene_model)["j_sup"].shape[0]),
+        kernel_ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], kernel_b1_ms=t["kernel_b1_ms"],
+        f64_kernel_ms=t["kernel64_ms"], max_abs_err=max(t["max_abs_err"].values()),
+        teams_per_sm=t["teams_per_sm"], team_shared_bytes=t["team_shared_bytes"],
+        samples_per_block=t["samples_per_block"], ptxas=t["ptxas"],
+    )
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=50, help="control steps of Go2 trot, fused route")
     ap.add_argument("--unfused-steps", type=int, default=3, help="control steps of Go2 trot, unfused route")
     ap.add_argument("--jump-steps", type=int, default=55, help="control steps of Go2 seq-jump, fused route")
+    ap.add_argument("--jog-steps", type=int, default=40, help="control steps of H1 jog, fused route")
+    ap.add_argument("--loco-steps", type=int, default=20, help="control steps of H1 loco, fused route")
+    ap.add_argument("--crate-steps", type=int, default=30, help="control steps of Go2 crate climb, fused route")
+    ap.add_argument("--push-steps", type=int, default=20, help="control steps of H1 push crate, fused route")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
     args = ap.parse_args()
@@ -605,26 +730,43 @@ def main():
     )
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    mj = load_scene("unitree_go2", "mjx_scene_force.xml")
-    mj.opt.timestep = 0.02
-    build_all(mj)
+    mjs = {}
+    for name, (robot, xml) in SCENES.items():
+        mjs[name] = load_scene(robot, xml)
+        mjs[name].opt.timestep = 0.02
+    build_all({name: put_model(mj, device=DEVICE, dtype=torch.float32) for name, mj in mjs.items()})
 
-    timing_e, m64, m32, states = phase_compare(mj)
-    emit("engine_step_timing", **{k: v for k, v in timing_e.items() if k != "max_abs_err"},
-         card=smi)
-    timing_s = phase_solver_compare(m64, m32, states)
-    emit("solver_newton_timing", **{k: v for k, v in timing_s.items() if k != "max_abs_err"},
-         card=smi)
-    phase_fused_vs_unfused(m64, states)
+    keys_e, keys_s = {}, {}
+    for name, mj in mjs.items():
+        t_scene = time.time()
+        t_e, m64, m32, states = phase_compare(name, mj)
+        emit("engine_step_timing", scene=name, **{k: v for k, v in t_e.items() if k != "max_abs_err"},
+             card=smi)
+        t_s = phase_solver_compare(name, m64, m32, states)
+        emit("solver_newton_timing", scene=name, **{k: v for k, v in t_s.items() if k != "max_abs_err"},
+             card=smi)
+        phase_fused_vs_unfused(name, m64, states)
+        keys_e[name], keys_s[name] = key_record(t_e, m64), key_record(t_s, m64)
+        if name == "go2":  # the kernels line's main numbers
+            timing_e, timing_s = t_e, t_s
+        emit("scene_done", scene=name, seconds=time.time() - t_scene)
+        del states
+        torch.cuda.empty_cache()
     phase_small_input()
     if args.compare_only:
         emit("done", seconds=time.time() - t_start, compare_only=True)
         return
-    launches_e, step_ms_fused, qpos_fused = phase_path("unitree_go2_trot", "fused", args.steps)
-    launches_s, step_ms_unfused, _ = phase_path(
-        "unitree_go2_trot", "unfused", args.unfused_steps, same_as=qpos_fused
+    paths = {}
+    paths["trot"] = phase_path("unitree_go2_trot", "fused", args.steps)
+    paths["trot_unfused"] = phase_path(
+        "unitree_go2_trot", "unfused", args.unfused_steps, same_as=paths["trot"]["qpos"]
     )
-    launches_jump, step_ms_jump, _ = phase_path("unitree_go2_seq_jump", "fused", args.jump_steps)
+    paths["seq_jump"] = phase_path("unitree_go2_seq_jump", "fused", args.jump_steps)
+    paths["h1_jog"] = phase_path("unitree_h1_jog", "fused", args.jog_steps)
+    paths["h1_loco"] = phase_path("unitree_h1_loco", "fused", args.loco_steps)
+    paths["go2_crate_climb"] = phase_path("unitree_go2_crate_climb", "fused", args.crate_steps)
+    paths["h1_push_crate"] = phase_path("unitree_h1_push_crate", "fused", args.push_steps)
+    fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
 
     def kernel_line(name, source, replaces, launches, t, **more):
         return {
@@ -639,21 +781,24 @@ def main():
     kernels = [
         kernel_line(
             "engine_step", "dial_mpc_tpu_torch/csrc/engine_step.cu",
-            "dial_mpc_tpu/physics/engine_pallas.py:1341", launches_e, timing_e,
-            path="unitree_go2_trot, fused route", control_step_ms_median=step_ms_fused,
-            launches_seq_jump=launches_jump, control_step_ms_median_seq_jump=step_ms_jump,
+            "dial_mpc_tpu/physics/engine_pallas.py:1341", paths["trot"]["launches"], timing_e,
+            path="unitree_go2_trot, fused route",
+            launches_by_path={k: v["launches"] for k, v in fused.items()},
+            control_step_ms_by_path={k: dict(median=v["step_ms"], p90=v["p90_ms"], first=v["first_ms"])
+                                     for k, v in fused.items()},
             kernel_b1_ms=timing_e["kernel_b1_ms"], f64_kernel_ms=timing_e["kernel64_ms"],
             lanes=timing_e["lanes"], teams_per_sm=timing_e["teams_per_sm"],
             team_shared_bytes=timing_e["team_shared_bytes"], ptxas=timing_e["ptxas"],
+            keys=keys_e,
         ),
         kernel_line(
             "solver_newton", "dial_mpc_tpu_torch/csrc/solver_newton.cu",
-            "dial_mpc_tpu/physics/solver_pallas.py:430", launches_s, timing_s,
-            path="unitree_go2_trot, unfused route", control_step_ms_median=step_ms_unfused,
+            "dial_mpc_tpu/physics/solver_pallas.py:430", paths["trot_unfused"]["launches"], timing_s,
+            path="unitree_go2_trot, unfused route", control_step_ms_median=paths["trot_unfused"]["step_ms"],
             kernel_b1_ms=timing_s["kernel_b1_ms"], f64_kernel_ms=timing_s["kernel64_ms"],
             lanes=timing_s["lanes"], samples_per_block=timing_s["samples_per_block"],
             teams_per_sm=timing_s["teams_per_sm"], team_shared_bytes=timing_s["team_shared_bytes"],
-            ptxas=timing_s["ptxas"],
+            ptxas=timing_s["ptxas"], keys=keys_s,
         ),
     ]
     emit("done", seconds=time.time() - t_start)

@@ -21,8 +21,9 @@
 // the latency of one sample's chain, not bytes and not the card's rate.
 // The design shortens the chain and overlaps many of them:
 // - a team of LANES lanes (a warp by default, newton_solve_team.cuh) works on
-//   one sample, SAMPLES_PER_BLOCK teams a block, so 2049 samples are 2049
-//   warps and one wave on 132 SMs in float32;
+//   one sample, up to four teams a block (fewer where a team's working set
+//   leaves room for fewer on an SM: the crate scenes in float64), so 2049
+//   samples are 2049 warps, one wave on 132 SMs at the Go2 key in float32;
 // - every stage is split over the team's lanes, one lane for each value it
 //   owns: bodies of one tree level (the legs together), dofs, the masked
 //   entries of M and of the Hessian, contact-dof pairs, constraint rows, the
@@ -35,9 +36,13 @@
 // The boundary is sample-major: a sample's inputs and outputs are one
 // contiguous row, which its team reads and writes together.
 //
-// Scope: free and hinge joints, plane-sphere pairs of condim 3, pyramidal
-// cones, plain Euler (eulerdamp disabled), no friction-loss dofs. The Python
-// wrapper refuses any other model before it builds this file.
+// Scope: free, hinge and slide joints; plane-sphere, plane-capsule,
+// plane-box, sphere-box, capsule-box and box-box pairs of condim 3 (the
+// reference's approximate manifolds, physics/collision.py); pyramidal cones;
+// joint limits and friction-loss dofs; plain Euler (eulerdamp disabled). The
+// Python wrapper refuses any other model before it builds this file. What a
+// model lacks is compiled out (PAIR_KINDS, HAS_SLIDE, NFRIC): a scene without
+// box pairs, slide joints or friction-loss dofs carries none of their code.
 
 #include <cuda_runtime.h>
 
@@ -95,15 +100,222 @@ __device__ __forceinline__ void make_frame(T* frame, const T* n) {
   v3_cross(frame + 3, frame + 6, n);
 }
 
+// plane-capsule frame: t1 the capsule axis projected onto the plane of n,
+// make_frame(n) where the axis is about parallel to n (collision.axis_frame)
+template <typename T>
+__device__ __forceinline__ void axis_frame(T* frame, const T* n, const T* axis) {
+  T t1[3], tmp[3];
+  v3_scale(tmp, n, v3_dot(axis, n));
+  v3_sub(t1, axis, tmp);
+  const T norm = sqrt(v3_dot(t1, t1));
+  if (norm > T(1e-10)) {
+    const T d = tmax(norm, T(1e-15));
+    v3_copy(frame, n);
+    v3_set(frame + 3, t1[0] / d, t1[1] / d, t1[2] / d);
+    v3_cross(frame + 6, n, frame + 3);
+  } else {
+    make_frame(frame, n);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// narrowphase: the pair functions of physics/collision.py, one lane a pair
+// ---------------------------------------------------------------------------
+
+enum PairKind {
+  PK_PLANE_SPHERE = 0, PK_PLANE_CAPSULE = 1, PK_PLANE_BOX = 2,
+  PK_SPHERE_BOX = 3, PK_CAPSULE_BOX = 4, PK_BOX_BOX = 5
+};
+// whether the model has a pair of kind k; the others are compiled out
+__device__ __forceinline__ constexpr bool has_pair_kind(int k) { return (PAIR_KINDS >> k) & 1; }
+
+// the distance of the sphere (c, r) to the plane (pp, pn), and the contact
+// point halfway through the overlap
+template <typename T>
+__device__ __forceinline__ T plane_sphere(const T* pp, const T* pn, const T* c, T r, T* pos) {
+  T rel[3], tmp[3];
+  v3_sub(rel, c, pp);
+  const T dist = v3_dot(pn, rel) - r;
+  v3_scale(tmp, pn, r + T(0.5) * dist);
+  v3_sub(pos, c, tmp);
+  return dist;
+}
+
+// corner k of a box (x fastest: bit 0 of k is the sign of x, bit 1 of y, bit 2 of z)
+template <typename T>
+__device__ __forceinline__ void box_corner(T* out, const T* c, const T* mat, const T* size, int k) {
+  const T l[3] = {(k & 1) ? size[0] : -size[0], (k & 2) ? size[1] : -size[1],
+                  (k & 4) ? size[2] : -size[2]};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[i] = c[i] + (l[0] * mat[3 * i] + l[1] * mat[3 * i + 1] + l[2] * mat[3 * i + 2]);
+}
+
+// The sphere (c1, r1) against a box (centre bc, row-major frame bR, half
+// sizes sz): the signed distance, the contact point and the normal n from the
+// sphere into the box. A centre inside the box goes to the face of the least
+// gap (the first of equal gaps), and the normal turns.
+template <typename T>
+__device__ __forceinline__ T sphere_box(const T* c1, T r1, const T* bc, const T* bR, const T* sz,
+                                        T* pos, T* n) {
+  T rel[3], pl[3], cp[3];
+  v3_sub(rel, c1, bc);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pl[i] = bR[i] * rel[0] + bR[3 + i] * rel[1] + bR[6 + i] * rel[2];
+  const bool inside = fabs(pl[0]) < sz[0] && fabs(pl[1]) < sz[1] && fabs(pl[2]) < sz[2];
+  if (inside) {
+    const T g0 = sz[0] - fabs(pl[0]), g1 = sz[1] - fabs(pl[1]), g2 = sz[2] - fabs(pl[2]);
+    const int ax = (g0 <= g1 && g0 <= g2) ? 0 : (g1 <= g2 ? 1 : 2);
+    v3_copy(cp, pl);
+    cp[ax] = pl[ax] < T(0) ? -sz[ax] : sz[ax];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) cp[i] = tclip(pl[i], -sz[i], sz[i]);
+  }
+  T dvec[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    dvec[i] = bc[i] + (bR[3 * i] * cp[0] + bR[3 * i + 1] * cp[1] + bR[3 * i + 2] * cp[2]) - c1[i];
+  const T dc = sqrt(v3_dot(dvec, dvec));
+  const T dd = tmax(dc, T(1e-15));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) n[i] = inside ? -(dvec[i] / dd) : dvec[i] / dd;
+  const T dist = inside ? -(dc + r1) : dc - r1;
+  T tmp[3];
+  v3_scale(tmp, n, r1 + T(0.5) * dist);
+  v3_add(pos, c1, tmp);
+  return dist;
+}
+
+// the index of the least of d[0 .. N) not yet in taken, the lower index
+// first among equals (the order of a stable sort); marks it taken
+template <int N, typename T>
+__device__ __forceinline__ int take_least(const T* d, unsigned& taken) {
+  int best = -1;
+  T bd = T(0);
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (!((taken >> k) & 1u) && (best < 0 || d[k] < bd)) {
+      best = k;
+      bd = d[k];
+    }
+  taken |= 1u << best;
+  return best;
+}
+
+// The contacts of pair pr into slots conadr ... (dist, point, frame rows).
+template <typename T>
+__device__ __forceinline__ void collide_pair(const ModelReal<T>& R, const ModelTopo& tp, int pr,
+                                             const T (*xpos)[3], const T (*xquat)[4], T* con_dist,
+                                             T (*con_pos)[3], T (*con_frame)[9]) {
+  const int g1 = tp.pair_g1[pr], g2 = tp.pair_g2[pr], slot = tp.pair_conadr[pr];
+  const int kind = tp.pair_kind[pr];
+  const int b1 = tp.cgeom_bodyid[g1], b2 = tp.cgeom_bodyid[g2];
+  T p1[3], p2[3], R1[9], R2[9], tmp[3], gq[4];
+  quat_rot(tmp, R.cgeom_pos[g1], xquat[b1]);
+  v3_add(p1, xpos[b1], tmp);
+  quat_mul(gq, xquat[b1], R.cgeom_quat[g1]);
+  quat_to_mat(R1, gq);
+  quat_rot(tmp, R.cgeom_pos[g2], xquat[b2]);
+  v3_add(p2, xpos[b2], tmp);
+  quat_mul(gq, xquat[b2], R.cgeom_quat[g2]);
+  quat_to_mat(R2, gq);
+  const T* s1 = R.cgeom_size[g1];
+  const T* s2 = R.cgeom_size[g2];
+  T pn[3], axis[3];
+  mat_col(pn, R1, 2);  // a plane's normal, or the first capsule's axis
+  mat_col(axis, R2, 2);
+  if (has_pair_kind(PK_PLANE_SPHERE) && kind == PK_PLANE_SPHERE) {
+    con_dist[slot] = plane_sphere(p1, pn, p2, s2[0], con_pos[slot]);
+    make_frame(con_frame[slot], pn);
+  } else if (has_pair_kind(PK_PLANE_CAPSULE) && kind == PK_PLANE_CAPSULE) {
+    T fr[9];
+    axis_frame(fr, pn, axis);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // the end spheres, +axis first
+      T ep[3];
+      v3_scale(tmp, axis, s2[1]);
+      if (e == 0) { v3_add(ep, p2, tmp); } else { v3_sub(ep, p2, tmp); }
+      con_dist[slot + e] = plane_sphere(p1, pn, ep, s2[0], con_pos[slot + e]);
+      for (int x = 0; x < 9; ++x) con_frame[slot + e][x] = fr[x];
+    }
+  } else if (has_pair_kind(PK_PLANE_BOX) && kind == PK_PLANE_BOX) {
+    // the four deepest of the eight corners
+    T d[8], cn[3];
+    const T off = v3_dot(pn, p1);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      box_corner(cn, p2, R2, s2, k);
+      d[k] = v3_dot(cn, pn) - off;
+    }
+    unsigned taken = 0;
+    T fr[9];
+    make_frame(fr, pn);
+    for (int e = 0; e < 4; ++e) {
+      const int k = take_least<8>(d, taken);
+      T dk = T(0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dk = q == k ? d[q] : dk;
+      box_corner(cn, p2, R2, s2, k);
+      v3_scale(tmp, pn, T(0.5) * dk);
+      v3_sub(con_pos[slot + e], cn, tmp);
+      con_dist[slot + e] = dk;
+      for (int x = 0; x < 9; ++x) con_frame[slot + e][x] = fr[x];
+    }
+  } else if (has_pair_kind(PK_SPHERE_BOX) && kind == PK_SPHERE_BOX) {
+    T n[3];
+    con_dist[slot] = sphere_box(p1, s1[0], p2, R2, s2, con_pos[slot], n);
+    make_frame(con_frame[slot], n);
+  } else if (has_pair_kind(PK_CAPSULE_BOX) && kind == PK_CAPSULE_BOX) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // the capsule's end spheres, +axis first
+      T ep[3], n[3];
+      v3_scale(tmp, pn, s1[1]);
+      if (e == 0) { v3_add(ep, p1, tmp); } else { v3_sub(ep, p1, tmp); }
+      con_dist[slot + e] = sphere_box(ep, s1[0], p2, R2, s2, con_pos[slot + e], n);
+      make_frame(con_frame[slot + e], n);
+    }
+  } else if (has_pair_kind(PK_BOX_BOX) && kind == PK_BOX_BOX) {
+    // each box's corners against the other (the first box's first), the
+    // deepest 8 of the 16; a candidate is recomputed once it is chosen
+    T d[16], cn[3], pos[3], n[3];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (k < 8) {
+        box_corner(cn, p1, R1, s1, k);
+        d[k] = sphere_box(cn, T(0), p2, R2, s2, pos, n);
+      } else {
+        box_corner(cn, p2, R2, s2, k - 8);
+        d[k] = sphere_box(cn, T(0), p1, R1, s1, pos, n);
+      }
+    }
+    unsigned taken = 0;
+    for (int e = 0; e < 8; ++e) {
+      const int k = take_least<16>(d, taken);
+      const bool flip = k >= 8;
+      box_corner(cn, flip ? p2 : p1, flip ? R2 : R1, flip ? s2 : s1, k & 7);
+      con_dist[slot + e] =
+          sphere_box(cn, T(0), flip ? p1 : p2, flip ? R1 : R2, flip ? s1 : s2, con_pos[slot + e], n);
+      T* fr = con_frame[slot + e];
+      make_frame(fr, n);
+      if (flip)  // the second box's corners: normal and second tangent reversed
+        for (int x = 0; x < 3; ++x) {
+          fr[x] = -fr[x];
+          fr[6 + x] = -fr[6 + x];
+        }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The team Newton solve (newton_solve_team.cuh) on this model's static
-// sparsity: unilateral rows only, lists read from global memory.
+// sparsity: unilateral rows, and friction-loss rows where the model has
+// friction-loss dofs; lists read from global memory.
 // ---------------------------------------------------------------------------
 
 struct EnginePolicy {
   static constexpr int NV = mc::NV, NEFC = mc::NEFC;
   static constexpr int ITERATIONS = mc::ITERATIONS, LS_ITERATIONS = mc::LS_ITERATIONS;
-  static constexpr bool DENSE = false, FRICTION_ROWS = false, CONSTRAINT_FORCE = false;
+  static constexpr bool DENSE = false, FRICTION_ROWS = mc::NFRIC > 0, CONSTRAINT_FORCE = false;
   static constexpr int NGROUPS = 0;
   static __device__ __forceinline__ const short* jrow_adr() { return g_lists.jrow_adr; }
   static __device__ __forceinline__ const short* jrow_col() { return g_lists.jrow_col; }
@@ -190,6 +402,15 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
           quat_normalize(quat, S.qp + qadr + 3);
           v3_copy(s.xanchor[j], pos);
           v3_copy(s.xaxis[j], R.jnt_axis[j]);
+        } else if (HAS_SLIDE && tp.jnt_type[j] == JNT_SLIDE) {
+          // the anchor is taken before the translation (mj_kinematics)
+          T axis[3];
+          quat_rot(axis, R.jnt_axis[j], quat);
+          quat_rot(tmp, R.jnt_pos[j], quat);
+          v3_add(s.xanchor[j], pos, tmp);
+          v3_copy(s.xaxis[j], axis);
+          v3_scale(tmp, axis, S.qp[qadr] - R.qpos0[qadr]);
+          v3_add(pos, pos, tmp);
         } else {  // hinge
           T anchor[3];
           quat_rot(tmp, R.jnt_pos[j], quat);
@@ -271,6 +492,9 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
         mat_col(cd, Rm, k - 3);
         v3_cross(cd + 3, cd, rel);
       }
+    } else if (HAS_SLIDE && tp.jnt_type[j] == JNT_SLIDE) {
+      v3_set(cd, T(0), T(0), T(0));
+      v3_copy(cd + 3, s.xaxis[j]);
     } else {  // hinge
       T rel[3];
       v3_sub(rel, o, s.xanchor[j]);
@@ -384,26 +608,9 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
   chol_solve_team<T, NV>(tm, g_mfac, c.A, c.L, c.b, c.w, c.y);
   for (int i = lane; i < NV; i += LANES) S.qacc[i] = c.y[NV - 1 - i];
 
-  // ---- collision: plane (g1) against sphere (g2), one lane a pair ----
-  for (int pr = lane; pr < NPAIR; pr += LANES) {
-    const int g1 = tp.pair_g1[pr], g2 = tp.pair_g2[pr], slot = tp.pair_conadr[pr];
-    const int b1 = tp.cgeom_bodyid[g1], b2 = tp.cgeom_bodyid[g2];
-    T p1[3], p2[3], tmp[3], gq[4], R1[9], pn[3], rel[3];
-    quat_rot(tmp, R.cgeom_pos[g1], S.xquat[b1]);
-    v3_add(p1, S.xpos[b1], tmp);
-    quat_mul(gq, S.xquat[b1], R.cgeom_quat[g1]);
-    quat_to_mat(R1, gq);
-    quat_rot(tmp, R.cgeom_pos[g2], S.xquat[b2]);
-    v3_add(p2, S.xpos[b2], tmp);
-    mat_col(pn, R1, 2);
-    const T r = R.cgeom_size[g2][0];
-    v3_sub(rel, p2, p1);
-    T dist = v3_dot(pn, rel) - r;
-    v3_scale(tmp, pn, r + T(0.5) * dist);
-    v3_sub(S.con_pos[slot], p2, tmp);
-    S.con_dist[slot] = dist;
-    make_frame(c.con_frame[slot], pn);
-  }
+  // ---- collision, one lane a pair ----
+  for (int pr = lane; pr < NPAIR; pr += LANES)
+    collide_pair<T>(R, tp, pr, S.xpos, S.xquat, S.con_dist, S.con_pos, c.con_frame);
   tm.sync();
 
   // ---- translational Jacobian difference (body 2 minus body 1) along each
@@ -430,12 +637,20 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
   }
   tm.sync();
 
-  // ---- constraint rows, one lane a row: joint limits, then four pyramid
-  // facets a contact ----
+  // ---- constraint rows, one lane a row: friction-loss dofs, joint limits,
+  // then four pyramid facets a contact ----
   const T timestep = C.timestep;
   for (int r = lane; r < NEFC; r += LANES) {
-    if (r < NLIMIT) {
-      const int j = tp.limit_jnt[r];
+    if (r < NFRIC) {
+      const int i = tp.fric_dof[r];
+      T imp = impedance(R.dof_solimp[i], T(0));
+      T ar = ref_acc(R.dof_solref[i], R.dof_solimp[i], timestep, imp, T(0), S.qv[i]);
+      T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[i], T(MJ_MINVAL));
+      S.J[r][i] = T(1);
+      S.D[r] = T(1) / Rr;
+      S.aref[r] = ar;
+    } else if (r < NFRIC + NLIMIT) {
+      const int j = tp.limit_jnt[r - NFRIC];
       const int dadr = tp.jnt_dofadr[j];
       T q = S.qp[tp.jnt_qposadr[j]];
       T dist_lo = q - R.jnt_range[j][0], dist_hi = R.jnt_range[j][1] - q;
@@ -451,7 +666,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       S.D[r] = active / Rr;
       S.aref[r] = ar * active;
     } else {
-      const int slot = (r - NLIMIT) >> 2, facet = (r - NLIMIT) & 3;
+      const int slot = (r - NFRIC - NLIMIT) >> 2, facet = (r - NFRIC - NLIMIT) & 3;
       const int kdir = facet >> 1;
       const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
       T pos = S.con_dist[slot] - R.con_includemargin[slot];
@@ -482,7 +697,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
   // ---- Newton solve: qacc_smooth -> qacc ----
   if constexpr (NEFC > 0)
     newton_solve_team<EnginePolicy, T>(tm, S.J, S.D, S.aref, S.M, S.qacc, c.A, c.L, c.b, c.w,
-                                       c.y, c.force, c.quad_w, C.tolerance);
+                                       c.y, c.force, c.quad_w, C.tolerance, R.efc_frictionloss);
 
   // ---- outputs that belong to the pre-step state ----
   if (out != nullptr) {
@@ -570,24 +785,25 @@ __device__ __forceinline__ void engine_step_team(const Team tm, StepShared<T>& S
 // launch
 // ---------------------------------------------------------------------------
 
-constexpr int SAMPLES_PER_BLOCK = 4;
-constexpr int THREADS = LANES * SAMPLES_PER_BLOCK;
+constexpr int MAX_SAMPLES_PER_BLOCK = 4;
+constexpr int THREADS = LANES * MAX_SAMPLES_PER_BLOCK;
 
 // a team's share of the block's dynamic shared memory, 16-byte aligned
 template <typename T>
 struct TeamBytes { static constexpr int value = (int)((sizeof(StepShared<T>) + 15) / 16 * 16); };
 
-// blocks an SM should hold: float32 fits four by shared memory, float64 two
+// blocks of four teams an SM should hold by registers: float32 four, float64 two
 template <typename T>
 struct MinBlocks { static constexpr int value = sizeof(T) == 4 ? 4 : 2; };
 
 // in: (B, N_IN_ROWS) rows qpos, qvel, ctrl; out: (B, N_OUT_ROWS)
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
-    engine_step_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int n_steps) {
+    engine_step_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int n_steps,
+                       int samples_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int team = threadIdx.x / LANES;
-  const int sample = blockIdx.x * SAMPLES_PER_BLOCK + team;
+  const int sample = blockIdx.x * samples_per_block + team;
   if (sample >= B) return;  // the whole team leaves together
   const unsigned mask =
       LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u) << (threadIdx.x % 32 / LANES * LANES);
@@ -596,35 +812,57 @@ __global__ void __launch_bounds__(THREADS, MinBlocks<T>::value)
                       out + (size_t)sample * N_OUT_ROWS, n_steps);
 }
 
-// more than 48 KB of dynamic shared memory needs the kernel's consent, once
+// Samples a block, chosen once per type from the team's shared memory and
+// the occupancy it gives: the count of 1, 2 or 4 that keeps the most teams on
+// an SM, the largest of equals (a small working set keeps four a block). Minus
+// a CUDA error code if a query fails, 0 if one team's working set exceeds
+// what a block may have.
+struct LaunchShape {
+  int samples_per_block, teams_per_sm;
+};
+
 template <typename T>
-static cudaError_t allow_shared() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      engine_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SAMPLES_PER_BLOCK * TeamBytes<T>::value);
-  return err;
+static LaunchShape choose_shape() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return {-(int)err, 0};
+  const int bytes = TeamBytes<T>::value;
+  if (bytes > optin) return {0, 0};
+  const int most = optin / bytes < MAX_SAMPLES_PER_BLOCK ? optin / bytes : MAX_SAMPLES_PER_BLOCK;
+  // more than 48 KB of dynamic shared memory needs the kernel's consent
+  err = cudaFuncSetAttribute(engine_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most * bytes);
+  if (err != cudaSuccess) return {-(int)err, 0};
+  LaunchShape best = {0, 0};
+  for (int spb = 1; spb <= most; spb *= 2) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, engine_step_kernel<T>,
+                                                        spb * LANES, spb * bytes);
+    if (err != cudaSuccess) return {-(int)err, 0};
+    if (blocks * spb >= best.teams_per_sm) best = {spb, blocks * spb};
+  }
+  return best;
+}
+
+template <typename T>
+static const LaunchShape& launch_shape() {
+  static const LaunchShape shape = choose_shape<T>();
+  return shape;
 }
 
 template <typename T>
 static int launch(const void* in, void* out, int B, int n_steps, void* stream) {
   if (B <= 0 || n_steps < 1) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_shared<T>();
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
-  engine_step_kernel<T><<<blocks, THREADS, SAMPLES_PER_BLOCK * TeamBytes<T>::value,
-                          (cudaStream_t)stream>>>((const T*)in, (T*)out, B, n_steps);
+  const LaunchShape& sh = launch_shape<T>();
+  if (sh.samples_per_block < 0) return -sh.samples_per_block;
+  if (sh.samples_per_block == 0) return (int)cudaErrorInvalidConfiguration;
+  const int spb = sh.samples_per_block;
+  const int blocks = (B + spb - 1) / spb;
+  engine_step_kernel<T><<<blocks, spb * LANES, spb * TeamBytes<T>::value, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, B, n_steps, spb);
   return (int)cudaGetLastError();
-}
-
-// samples (teams) an SM holds at once, or minus a CUDA error code
-template <typename T>
-static int teams_per_sm() {
-  cudaError_t err = allow_shared<T>();
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, engine_step_kernel<T>, THREADS,
-                                                        SAMPLES_PER_BLOCK * TeamBytes<T>::value);
-  return err == cudaSuccess ? blocks * SAMPLES_PER_BLOCK : -(int)err;
 }
 
 extern "C" {
@@ -641,6 +879,10 @@ int engine_sample_major() { return 1; }
 int engine_lanes() { return LANES; }
 int engine_team_bytes_f32() { return TeamBytes<float>::value; }
 int engine_team_bytes_f64() { return TeamBytes<double>::value; }
-int engine_teams_per_sm_f32() { return teams_per_sm<float>(); }
-int engine_teams_per_sm_f64() { return teams_per_sm<double>(); }
+// samples a block and teams an SM of the launch (0: a team does not fit a
+// block; negative: minus a CUDA error code)
+int engine_samples_per_block_f32() { return launch_shape<float>().samples_per_block; }
+int engine_samples_per_block_f64() { return launch_shape<double>().samples_per_block; }
+int engine_teams_per_sm_f32() { return launch_shape<float>().teams_per_sm; }
+int engine_teams_per_sm_f64() { return launch_shape<double>().teams_per_sm; }
 }

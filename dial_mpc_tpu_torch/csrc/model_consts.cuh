@@ -18,13 +18,17 @@
 namespace mc {
 constexpr int NQ = MC_NQ, NV = MC_NV, NU = MC_NU, NBODY = MC_NBODY, NJNT = MC_NJNT;
 constexpr int NSITE = MC_NSITE, NCON = MC_NCON, NPAIR = MC_NPAIR, NCGEOM = MC_NCGEOM;
-constexpr int NLIMIT = MC_NLIMIT, NEFC = MC_NEFC, NLEVEL = MC_NLEVEL;
+constexpr int NFRIC = MC_NFRIC, NLIMIT = MC_NLIMIT, NEFC = MC_NEFC, NLEVEL = MC_NLEVEL;
+// bit k set where some pair is of PairKind k (engine_step.cu); a slide joint?
+constexpr int PAIR_KINDS = MC_PAIR_KINDS;
+constexpr bool HAS_SLIDE = MC_HAS_SLIDE != 0;
 constexpr int ITERATIONS = MC_ITERATIONS, LS_ITERATIONS = MC_LS_ITERATIONS;
 // arrays of a size that may be zero get one unused element
 constexpr int at_least_1(int n) { return n > 0 ? n : 1; }
 constexpr int NSITE1 = at_least_1(NSITE), NCON1 = at_least_1(NCON);
 constexpr int NPAIR1 = at_least_1(NPAIR), NCGEOM1 = at_least_1(NCGEOM);
 constexpr int NLIMIT1 = at_least_1(NLIMIT), NEFC1 = at_least_1(NEFC), NU1 = at_least_1(NU);
+constexpr int NFRIC1 = at_least_1(NFRIC);
 
 // output rows, in the order the wrapper splits them
 constexpr int O_QPOS = 0;
@@ -54,9 +58,9 @@ struct ModelTopo {
   int site_bodyid[mc::NSITE1];
   // geoms that appear in the pair table, renumbered 0..NCGEOM-1
   int cgeom_bodyid[mc::NCGEOM1];
-  int pair_g1[mc::NPAIR1], pair_g2[mc::NPAIR1], pair_conadr[mc::NPAIR1];
-  int con_body1[mc::NCON1], con_body2[mc::NCON1];
-  int limit_jnt[mc::NLIMIT1];
+  int pair_g1[mc::NPAIR1], pair_g2[mc::NPAIR1], pair_conadr[mc::NPAIR1], pair_kind[mc::NPAIR1];
+  int con_body1[mc::NCON1], con_body2[mc::NCON1];  // per contact slot
+  int fric_dof[mc::NFRIC1], limit_jnt[mc::NLIMIT1];
   int act_qposadr[mc::NU1], act_affine[mc::NU1];
   int act_ctrllimited[mc::NU1], act_forcelimited[mc::NU1];
 };
@@ -98,8 +102,8 @@ struct TeamTables {
   MC_LIST(jcol_adr);  // the rows that can reach each dof
   MC_LIST(jcol_row);
   // contact-dof pairs: slot << 10 | side << 8 | dof, side bit 0 for body 1's
-  // chain, bit 1 for body 2's
-  MC_LIST(cpair);
+  // chain, bit 1 for body 2's (16 bits: unsigned)
+  unsigned short cpair[mc::at_least_1(MC_N_cpair)];
   MC_LIST(hrow_adr);  // rows that reach both dofs of each Hessian factor entry
   MC_LIST(hrow);
 };
@@ -117,6 +121,8 @@ struct ModelReal {
   T jnt_solref[mc::NJNT][2], jnt_solimp[mc::NJNT][5], jnt_margin[mc::NJNT];
   T qpos0[mc::NQ];
   T dof_armature[mc::NV], dof_damping[mc::NV], dof_invweight0[mc::NV];
+  T dof_solref[mc::NV][2], dof_solimp[mc::NV][5];
+  T efc_frictionloss[mc::NEFC1];  // each row's friction-loss bound, 0 but for dof rows
   T cgeom_pos[mc::NCGEOM1][3], cgeom_quat[mc::NCGEOM1][4], cgeom_size[mc::NCGEOM1][3];
   T site_pos[mc::NSITE1][3], site_quat[mc::NSITE1][4];
   T act_gear[mc::NU1], act_gain[mc::NU1], act_bias[mc::NU1][3];
@@ -137,8 +143,8 @@ __device__ const ModelTopo g_topo = {
     MCI_body_dofadr, MCI_body_dofnum,
     MCI_jnt_type, MCI_jnt_qposadr, MCI_jnt_dofadr, MCI_jnt_bodyid,
     MCI_dof_bodyid, MCI_site_bodyid, MCI_cgeom_bodyid,
-    MCI_pair_g1, MCI_pair_g2, MCI_pair_conadr, MCI_con_body1, MCI_con_body2,
-    MCI_limit_jnt,
+    MCI_pair_g1, MCI_pair_g2, MCI_pair_conadr, MCI_pair_kind, MCI_con_body1, MCI_con_body2,
+    MCI_fric_dof, MCI_limit_jnt,
     MCI_act_qposadr, MCI_act_affine,
     MCI_act_ctrllimited, MCI_act_forcelimited};
 
@@ -160,6 +166,7 @@ __device__ const MC_FACTOR(hf) g_hfac = {
    MCI_body_inertia, MCI_body_invweight0, MCI_subtree_mass_inv, MCI_jnt_pos,     \
    MCI_jnt_axis, MCI_jnt_range, MCI_jnt_solref, MCI_jnt_solimp, MCI_jnt_margin,  \
    MCI_qpos0, MCI_dof_armature, MCI_dof_damping, MCI_dof_invweight0,             \
+   MCI_dof_solref, MCI_dof_solimp, MCI_efc_frictionloss,                         \
    MCI_cgeom_pos, MCI_cgeom_quat, MCI_cgeom_size, MCI_site_pos, MCI_site_quat,   \
    MCI_act_gear, MCI_act_gain, MCI_act_bias, MCI_act_ctrlrange,                  \
    MCI_act_forcerange, MCI_con_friction, MCI_con_solref, MCI_con_solimp,         \

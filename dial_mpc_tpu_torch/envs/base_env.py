@@ -125,6 +125,12 @@ class BaseEnv:
         self._nv = mj_model.nv
         self._nq = mj_model.nq
         self._nu = mj_model.nu
+        # PD gains: a scalar stays a Python number, per-joint gains become one
+        # tensor on the env's device
+        self._kp, self._kd = self._gain(config.kp), self._gain(config.kd)
+
+    def _gain(self, g):
+        return g if isinstance(g, (int, float)) else self._tensor(g)
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -197,7 +203,7 @@ class BaseEnv:
         q = pipeline_state.qpos[:, 7 : 7 + n]
         qd = pipeline_state.qvel[:, 6 : 6 + n]
         q_err = joint_target - q
-        tau = self._config.kp * q_err - self._config.kd * qd
+        tau = self._kp * q_err - self._kd * qd
         return torch.clamp(tau, self.joint_torque_range[:, 0], self.joint_torque_range[:, 1])
 
     # -- env API ------------------------------------------------------------

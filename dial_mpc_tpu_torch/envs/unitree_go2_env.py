@@ -1,5 +1,5 @@
-"""Unitree Go2 quadruped: velocity-tracking walk with gait shaping, and
-staged contact-target jumping on the same flat scene.
+"""Unitree Go2 quadruped: velocity-tracking walk with gait shaping, staged
+contact-target jumping on the same flat scene, and climbing onto a crate.
 
 The reward stack runs inside the batched rollout hot loop, so every term is
 elementwise work on the already-computed physics products (site_xpos, x/xd
@@ -527,3 +527,117 @@ class UnitreeGo2SeqJumpEnv(UnitreeGo2Env):
 
 
 register_env("unitree_go2_seq_jump", UnitreeGo2SeqJumpEnv, UnitreeGo2SeqJumpEnvConfig)
+
+
+@dataclass
+class UnitreeGo2CrateEnvConfig(UnitreeGo2EnvConfig):
+    pass
+
+
+class UnitreeGo2CrateEnv(UnitreeGo2Env):
+    """Crate climbing: the head goes to a point above the crate, and each
+    foot that touches the crate's top is rewarded."""
+
+    def __init__(self, config: UnitreeGo2CrateEnvConfig, device="cuda", dtype=torch.float32,
+                 engine="fused"):
+        super().__init__(config, device=device, dtype=dtype, engine=engine)
+        self.joint_range = self._tensor(
+            [
+                [-0.25, 0.25],
+                [-1.0, 1.4],
+                [-2.7, -1.0],
+                [-0.25, 0.25],
+                [-1.0, 1.4],
+                [-2.7, -1.0],
+                [-0.25, 0.25],
+                [0.0, 1.8],
+                [-2.7, -1.0],
+                [-0.25, 0.25],
+                [0.0, 1.8],
+                [-2.7, -1.0],
+            ]
+        )
+        # the foot-vs-crate contact slots, FR FL RR RL, from the static pair table
+        crate = self.mj_model.geom_id("static_box")
+        feet = [self.mj_model.geom_id(n) for n in ("FR", "FL", "RR", "RL")]
+        slots = {}
+        for (g1, g2, t1, t2, condim, conadr, conmax) in self.sys.pair_table:
+            if crate in (g1, g2):
+                other = g2 if g1 == crate else g1
+                if other in feet:
+                    slots[other] = conadr
+        self._crate_contact_slots = [slots[g] for g in feet]
+
+    def make_system(self, config: UnitreeGo2CrateEnvConfig):
+        mj_model = load_scene("unitree_go2", "mjx_scene_force_crate.xml")
+        mj_model.opt.timestep = config.timestep
+        return mj_model
+
+    def reset(self, generator: torch.Generator = None) -> State:
+        state = super().reset(generator)
+        info = dict(state.info)
+        z = lambda *shape: torch.zeros(1, *shape, device=self.device, dtype=self.dtype)
+        info["pos_tar"] = self._tensor([[1.45, 0.0, 0.87]])
+        info["vel_tar"] = z(3)
+        info["ang_vel_tar"] = z(3)
+        info["yaw_tar"] = z()
+        return state.replace(info=info)
+
+    def step(self, state: State, action: torch.Tensor, pipeline_next=None) -> State:
+        if self._config.leg_control == "position":
+            ctrl = self.act2joint(action)
+        else:
+            ctrl = self.act2tau(action, state.pipeline_state)
+        pipeline_state = self.advance(state, ctrl, pipeline_next)
+        x_pos, x_rot = pipeline_state.x_pos, pipeline_state.x_rot
+        torso = self._torso_idx - 1
+        torso_rot = x_rot[:, torso]
+        stepf = state.info["step"].to(self.dtype)[:, None]
+
+        obs = self._get_obs(pipeline_state, state.info)
+
+        # ---- reward stack ----
+        # The reference also computes gait, velocity, height, energy, pitch,
+        # roll and contact-penalty terms, all weighted 0 in this task; they are
+        # left out here (they could change nothing but the spread of a NaN).
+        # The feet's heights and targets stay, as info.
+        z_feet = pipeline_state.site_xpos[:, self._feet_site_id, 2]
+        duty_ratio, cadence, amplitude = GAIT_PARAMS[self._gait]
+        z_feet_tar = get_foot_step(
+            duty_ratio, cadence, amplitude, self._gait_phases, stepf[:, 0] * self.dt
+        )
+
+        pos_tar = state.info["pos_tar"] + state.info["vel_tar"] * self.dt * stepf
+        head_pos = x_pos[:, torso] + maths.quat_to_mat(torso_rot) @ self._head_offset
+        reward_pos = -((head_pos - pos_tar) ** 2).sum(-1)
+
+        vec = maths.rotate(self._up, x_rot[:, 0])
+        reward_upright = -((vec - self._up) ** 2).sum(-1)
+
+        rpy = maths.quat_to_euler(torso_rot)
+        reward_yaw = -torch.square(rpy[:, 2] - state.info["yaw_tar"])  # not wrapped
+
+        # feet on the crate's top: the contact point (the pair's midpoint)
+        # inside a thin box around the top face
+        cpos = pipeline_state.contact.pos[:, self._crate_contact_slots]  # (B, 4, 3)
+        on_top = (
+            (cpos[..., 0] > 1.0) & (cpos[..., 0] < 1.6)
+            & (cpos[..., 1] > -0.45) & (cpos[..., 1] < 0.45)
+            & (cpos[..., 2] > 0.59) & (cpos[..., 2] < 0.61)
+        )
+        reward_contact = on_top.sum(-1).to(self.dtype)
+
+        reward = reward_pos * 1.0 + reward_upright * 0.01 + reward_yaw * 0.3 + reward_contact * 0.02
+
+        info = dict(state.info)
+        info["step"] = state.info["step"] + 1
+        info["z_feet"] = z_feet
+        info["z_feet_tar"] = z_feet_tar
+
+        return state.replace(
+            pipeline_state=pipeline_state, obs=obs, reward=reward, done=torch.zeros_like(reward),
+            info=info,
+        )
+
+
+register_env("unitree_go2_crate_climb", UnitreeGo2CrateEnv, UnitreeGo2CrateEnvConfig)

@@ -8,4 +8,8 @@ environment is available here.
 examples = [
     "unitree_go2_trot",
     "unitree_go2_seq_jump",
+    "unitree_go2_crate_climb",
+    "unitree_h1_jog",
+    "unitree_h1_loco",
+    "unitree_h1_push_crate",
 ]

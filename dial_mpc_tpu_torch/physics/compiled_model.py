@@ -45,6 +45,7 @@ _ARRAYS = (
     "actuator_forcerange", "actuator_forcelimited",
 )
 _DISABLE_BITS = ("EULERDAMP", "CONTACT", "LIMIT", "GRAVITY")
+_NAME_KINDS = ("body", "site", "key", "geom")
 _MODELS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "models")
 
 
@@ -77,6 +78,9 @@ class CompiledModel:
     def site_id(self, name: str) -> int:
         return self._id("site", name)
 
+    def geom_id(self, name: str) -> int:
+        return self._id("geom", name)
+
     def keyframe_qpos(self, name: str) -> np.ndarray:
         return np.array(self.key_qpos[self._id("key", name)])
 
@@ -99,6 +103,7 @@ def snapshot(mj) -> CompiledModel:
     kinds = (
         ("body", mujoco.mjtObj.mjOBJ_BODY, mj.nbody),
         ("site", mujoco.mjtObj.mjOBJ_SITE, mj.nsite),
+        ("geom", mujoco.mjtObj.mjOBJ_GEOM, mj.ngeom),
         ("key", mujoco.mjtObj.mjOBJ_KEY, mj.nkey),
     )
     names = {
@@ -132,7 +137,7 @@ def load(path: str) -> CompiledModel:
             v = z[f"opt.{k}"]
             opt[k] = v if v.ndim else v.item()
         bits = {k: int(z[f"bit.{k}"]) for k in _DISABLE_BITS}
-        names = {k: [str(s) for s in z[f"names.{k}"]] for k in ("body", "site", "key")}
+        names = {k: [str(s) for s in z[f"names.{k}"]] for k in _NAME_KINDS}
     return CompiledModel(arrays, opt, bits, names)
 
 

@@ -31,6 +31,8 @@ import torch
 from dial_mpc_tpu_torch.physics import cuda_build
 from dial_mpc_tpu_torch.physics.forward import step as physics_step
 from dial_mpc_tpu_torch.physics.model import (
+    BOX,
+    CAPSULE,
     PLANE,
     SPHERE,
     Contact,
@@ -41,6 +43,17 @@ from dial_mpc_tpu_torch.physics.model import (
 from dial_mpc_tpu_torch.physics.solver import solve_reference
 
 FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
+
+# the pair kinds the kernel collides, numbered as csrc/engine_step.cu's
+# PairKind; the header carries each pair's kind and the set of kinds present
+PAIR_KINDS = {
+    (PLANE, SPHERE): 0,
+    (PLANE, CAPSULE): 1,
+    (PLANE, BOX): 2,
+    (SPHERE, BOX): 3,
+    (CAPSULE, BOX): 4,
+    (BOX, BOX): 5,
+}
 
 _CSRC = cuda_build.CSRC
 _INCLUDES = ("lane_math.cuh", "model_consts.cuh", "newton_solve_team.cuh")
@@ -76,7 +89,12 @@ def out_specs(m: Model):
 
 
 def check_supported(m: Model) -> None:
-    """Raise NotImplementedError for a model the CUDA kernel does not cover."""
+    """Raise NotImplementedError for a model the CUDA kernel does not cover.
+
+    Covered: free, hinge and slide joints; the pairs of ``PAIR_KINDS`` at
+    condim 3 with pyramidal cones; friction-loss dofs; joint limits; the
+    Euler integrator with eulerdamp disabled.
+    """
     if m.opt.cone == 1:
         raise NotImplementedError("CUDA step kernel: elliptic friction cones are not ported yet")
     if not m.opt.disable_eulerdamp:
@@ -85,16 +103,14 @@ def check_supported(m: Model) -> None:
         )
     if m.opt.integrator != 0:
         raise NotImplementedError("CUDA step kernel: only the Euler integrator is ported")
-    if any(f > 0 for f in m.dof_frictionloss_static):
-        raise NotImplementedError("CUDA step kernel: friction-loss dofs are not ported yet")
     if m.ncon and m.opt.disable_contact:
         raise NotImplementedError("CUDA step kernel: the contact-disable flag is not ported yet")
     for jt in m.jnt_type:
-        if jt not in (FREE, HINGE):
-            name = {BALL: "ball", SLIDE: "slide"}.get(jt, str(jt))
+        if jt not in (FREE, HINGE, SLIDE):
+            name = {BALL: "ball"}.get(jt, str(jt))
             raise NotImplementedError(f"CUDA step kernel: {name} joints are not ported yet")
     for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
-        if (t1, t2) != (PLANE, SPHERE):
+        if (t1, t2) not in PAIR_KINDS:
             raise NotImplementedError(
                 f"CUDA step kernel: collision pair of geom types {(t1, t2)} is not ported yet"
             )
@@ -109,6 +125,7 @@ def model_key(m: Model) -> tuple:
     return (
         m.pair_table, m.nq, m.nv, m.nu, m.jnt_type, m.opt.cone, m.opt.iterations,
         m.opt.ls_iterations, m.opt.disableflags, float(m.opt.timestep),
+        m.dof_frictionloss_static,
     )
 
 
@@ -141,6 +158,7 @@ def static_layout(m: Model) -> dict:
     anc = m.dof_ancestor_mask.cpu().numpy() > 0
     m_mask = anc | anc.T | np.eye(nv, dtype=bool)
 
+    fric_dof = [i for i in range(nv) if m.dof_frictionloss_static[i] > 0]
     limit_jnt = []
     if not m.opt.disable_limit:
         limit_jnt = [
@@ -148,12 +166,17 @@ def static_layout(m: Model) -> dict:
         ]
     cgeoms = sorted({g for p in m.pair_table for g in p[:2]})
     cg_index = {g: k for k, g in enumerate(cgeoms)}
-    con_body1, con_body2 = [], []
-    for (g1, g2, *_rest) in m.pair_table:
-        con_body1.append(m.geom_bodyid_static[g1])
-        con_body2.append(m.geom_bodyid_static[g2])
+    con_body1, con_body2 = [], []  # per contact slot
+    for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
+        con_body1 += [m.geom_bodyid_static[g1]] * conmax
+        con_body2 += [m.geom_bodyid_static[g2]] * conmax
 
+    # rows in the plain version's order: friction loss, limits, contacts
     sup = []
+    for i in fric_dof:
+        row = np.zeros(nv, dtype=bool)
+        row[i] = True
+        sup.append(row)
     for j in limit_jnt:
         row = np.zeros(nv, dtype=bool)
         row[m.jnt_dofadr[j]] = True
@@ -167,11 +190,13 @@ def static_layout(m: Model) -> dict:
         h_mask |= np.outer(row, row)
 
     return dict(
+        fric_dof=np.array(fric_dof, dtype=np.int64),
         limit_jnt=np.array(limit_jnt, dtype=np.int64),
         cgeoms=cgeoms,
         pair_g1=np.array([cg_index[p[0]] for p in m.pair_table], dtype=np.int64),
         pair_g2=np.array([cg_index[p[1]] for p in m.pair_table], dtype=np.int64),
         pair_conadr=np.array([p[5] for p in m.pair_table], dtype=np.int64),
+        pair_kind=np.array([PAIR_KINDS[p[2:4]] for p in m.pair_table], dtype=np.int64),
         con_body1=np.array(con_body1, dtype=np.int64),
         con_body2=np.array(con_body2, dtype=np.int64),
         chain_mask=chain, m_mask=m_mask, h_mask=h_mask,
@@ -224,8 +249,9 @@ def team_tables(m: Model) -> tuple:
     """
     lay = static_layout(m)
     nv, nb = m.nv, m.nbody
-    if nv > 255 or lay["j_sup"].shape[0] > 255:
-        raise NotImplementedError("CUDA step kernel: more than 255 dofs or constraint rows")
+    # matrix entries are packed r << 8 | c into a (signed) short
+    if nv > 127 or lay["j_sup"].shape[0] > 255:
+        raise NotImplementedError("CUDA step kernel: more than 127 dofs or 255 constraint rows")
     depth = [0] * nb
     for b in range(1, nb):
         depth[b] = depth[m.body_parentid[b]] + 1
@@ -241,6 +267,9 @@ def team_tables(m: Model) -> tuple:
     mrow_adr, mrow_col = _csr([[j for j in range(nv) if mm[i, j]] for i in range(nv)])
     jrow_adr, jrow_col = _csr([list(np.flatnonzero(r)) for r in sup])
     jcol_adr, jcol_row = _csr([list(np.flatnonzero(sup[:, i])) for i in range(nv)])
+    # cpair packs slot << 10 | side << 8 | dof: 6 bits of slot, 8 of dof
+    if m.ncon > 64:
+        raise NotImplementedError("CUDA step kernel: more than 64 contact slots")
     cpair = []
     for slot, (b1, b2) in enumerate(zip(lay["con_body1"], lay["con_body2"])):
         for i in range(nv):
@@ -249,7 +278,10 @@ def team_tables(m: Model) -> tuple:
                 cpair.append((slot << 10) | (side << 8) | i)
 
     mf = _factor_schedule(lay["m_pat"], mm[::-1, ::-1])
-    hf = _factor_schedule(lay["h_pat"], lay["h_mask"][::-1, ::-1])
+    # the Hessian starts as M (the rows' terms are added to it), so the entries
+    # outside M's mask start at zero: contacts between two moving bodies reach
+    # entries between their chains that M never holds
+    hf = _factor_schedule(lay["h_pat"], mm[::-1, ::-1])
     hrows = []
     for rc in hf["ent"]:
         i, j = nv - 1 - (rc >> 8), nv - 1 - (rc & 255)
@@ -299,13 +331,17 @@ def render_constants_header(m: Model) -> str:
     for b in range(m.nbody - 1, 0, -1):
         sub_mass[m.body_parentid[b]] += sub_mass[b]
 
-    nefc = len(lay["limit_jnt"]) + 4 * m.ncon
+    nfric = len(lay["fric_dof"])
+    nefc = nfric + len(lay["limit_jnt"]) + 4 * m.ncon
     assert lay["j_sup"].shape[0] == nefc
+    kinds = sorted(set(lay["pair_kind"].tolist()))
     sizes = dict(
         NQ=m.nq, NV=m.nv, NU=m.nu, NBODY=m.nbody, NJNT=m.njnt, NSITE=m.nsite,
         NCON=m.ncon, NPAIR=len(m.pair_table), NCGEOM=len(cg),
-        NLIMIT=len(lay["limit_jnt"]), NEFC=nefc,
+        NFRIC=nfric, NLIMIT=len(lay["limit_jnt"]), NEFC=nefc,
         ITERATIONS=m.opt.iterations, LS_ITERATIONS=m.opt.ls_iterations,
+        # bit k set: some pair is of kind k; whether any joint slides
+        PAIR_KINDS=sum(1 << k for k in kinds), HAS_SLIDE=int(SLIDE in m.jnt_type),
     )
     ints = dict(
         body_parentid=m.body_parentid, body_rootid=m.body_rootid,
@@ -316,8 +352,9 @@ def render_constants_header(m: Model) -> str:
         site_bodyid=m.site_bodyid.cpu().numpy(),
         cgeom_bodyid=[m.geom_bodyid_static[g] for g in cg],
         pair_g1=lay["pair_g1"], pair_g2=lay["pair_g2"], pair_conadr=lay["pair_conadr"],
+        pair_kind=lay["pair_kind"],
         con_body1=lay["con_body1"], con_body2=lay["con_body2"],
-        limit_jnt=lay["limit_jnt"],
+        fric_dof=lay["fric_dof"], limit_jnt=lay["limit_jnt"],
         act_qposadr=[m.jnt_qposadr[t] for t in m.actuator_trnid],
         act_affine=[int(bt == 1) for bt in m.actuator_biastype],
         act_ctrllimited=(r(m.actuator_ctrllimited) > 0).astype(np.int64),
@@ -333,7 +370,12 @@ def render_constants_header(m: Model) -> str:
         jnt_pos=r(m.jnt_pos), jnt_axis=r(m.jnt_axis), jnt_range=r(m.jnt_range),
         jnt_solref=r(m.jnt_solref), jnt_solimp=r(m.jnt_solimp), jnt_margin=r(m.jnt_margin),
         qpos0=r(m.qpos0), dof_armature=r(m.dof_armature), dof_damping=r(m.dof_damping),
-        dof_invweight0=r(m.dof_invweight0),
+        dof_invweight0=r(m.dof_invweight0), dof_solref=r(m.dof_solref),
+        dof_solimp=r(m.dof_solimp),
+        # each row's friction-loss bound (0 for limit and contact rows)
+        efc_frictionloss=np.concatenate(
+            [r(m.dof_frictionloss)[lay["fric_dof"]], np.zeros(nefc - nfric)]
+        ),
         cgeom_pos=r(m.geom_pos)[cg], cgeom_quat=r(m.geom_quat)[cg],
         cgeom_size=r(m.geom_size)[cg],
         site_pos=r(m.site_pos), site_quat=r(m.site_quat),
@@ -374,10 +416,12 @@ def step_flops(m: Model) -> int:
     nv, nb, nefc = m.nv, m.nbody, lay["j_sup"].shape[0]
     cross, dot3, dot6, qmul, qrot, q2m = 9, 5, 11, 28, 30, 27
     n_free = sum(1 for t in m.jnt_type if t == FREE)
-    n_hinge = m.njnt - n_free
+    n_slide = sum(1 for t in m.jnt_type if t == SLIDE)
+    n_hinge = m.njnt - n_free - n_slide
     f = 0
     # kinematics, inertial frames, subtree CoM
     f += (nb - 1) * (qrot + 3 + qmul + 12) + n_free * 12 + n_hinge * (3 * qrot + qmul + 14)
+    f += n_slide * (2 * qrot + 8)
     f += nb * (qrot + 3 + 3) + (nb - 1) * 3 + nb * 3
     # spatial inertias and dof subspaces
     f += nb * (3 + qmul + q2m + 9 * (5 + 2 + 6 + 2))
@@ -400,11 +444,31 @@ def step_flops(m: Model) -> int:
         return c + 2 * (2 * int(np.tril(pat, -1).sum()) + nv)
 
     f += chol(lay["m_pat"])
-    # collision and constraint rows
-    f += len(m.pair_table) * (2 * qrot + qmul + q2m + 6 + dot3 + 12 + 2 * cross + 8)
+    # collision: each geom's position, and as much of its frame as the pair
+    # reads (a plane's normal or a capsule's axis is one column, a box reads
+    # all of it, a sphere none); then the pair's own work
+    frame = 2 * cross + 8
+    col = qmul + 13
+    full = qmul + q2m
+    sb_dist = 3 * dot3 + 3 + 6 + 9 + 6 + dot3 + 1 + 1  # a point's distance to a box
+    sb_rest = 4 + 6  # the normal and the contact point
+    sphere_box = sb_dist + sb_rest + frame
+    corner = 18 + 3
+    per_kind = {  # kind: (first geom's frame, second geom's frame, the pair)
+        0: (col, 0, dot3 + 10 + frame),
+        1: (col, col, 2 * (6 + dot3 + 10) + dot3 + 6 + 10 + cross),
+        2: (col, full, dot3 + 8 * (corner + dot3 + 1) + 4 * 6 + frame),
+        3: (0, full, sphere_box),
+        4: (col, full, 2 * (6 + sphere_box)),
+        # 16 candidate distances, then point and frame of the deepest 8
+        5: (full, full, 16 * (corner + sb_dist) + 8 * (sb_rest + frame)),
+    }
+    f += len(m.pair_table) * 2 * (qrot + 3)
+    f += sum(sum(per_kind[k]) for k in lay["pair_kind"].tolist())
     kbi = 40
+    f += len(lay["fric_dof"]) * (kbi + 6)
     f += len(lay["limit_jnt"]) * (kbi + 10)
-    sup_c = int(lay["j_sup"][len(lay["limit_jnt"]):].sum())
+    sup_c = int(lay["j_sup"][len(lay["fric_dof"]) + len(lay["limit_jnt"]):].sum())
     f += m.ncon * (kbi + 12) + (sup_c // 4) * (2 * (cross + 3) + 3 + 3 * dot3) + sup_c * 5
     f += 4 * m.ncon * (kbi + 4)
     # Newton solve
@@ -445,11 +509,13 @@ class EngineLibrary:
             fn.restype = ctypes.c_int
         for name in ("engine_in_rows", "engine_out_rows", "engine_lanes",
                      "engine_team_bytes_f32", "engine_team_bytes_f64",
+                     "engine_samples_per_block_f32", "engine_samples_per_block_f64",
                      "engine_teams_per_sm_f32", "engine_teams_per_sm_f64"):
             getattr(self.lib, name).restype = ctypes.c_int
         self.in_rows = self.lib.engine_in_rows()
         self.out_rows = self.lib.engine_out_rows()
         self.lanes = self.lib.engine_lanes()
+        self._shapes = {}
 
     def fn(self, dtype: torch.dtype):
         if dtype == torch.float32:
@@ -458,16 +524,33 @@ class EngineLibrary:
             return self.lib.engine_step_f64
         raise TypeError(f"CUDA step kernel: dtype {dtype} is not supported (float32/float64)")
 
+    def _tag(self, dtype: torch.dtype) -> str:
+        self.fn(dtype)
+        return "f32" if dtype == torch.float32 else "f64"
+
     def team_bytes(self, dtype: torch.dtype) -> int:
         """Shared memory of one sample's team."""
-        return (self.lib.engine_team_bytes_f32 if dtype == torch.float32 else self.lib.engine_team_bytes_f64)()
+        return getattr(self.lib, f"engine_team_bytes_{self._tag(dtype)}")()
+
+    def launch_shape(self, dtype: torch.dtype) -> tuple:
+        """(samples a block, teams an SM) of the launch (needs the card)."""
+        shape = self._shapes.get(dtype)
+        if shape is None:
+            tag = self._tag(dtype)
+            spb = getattr(self.lib, f"engine_samples_per_block_{tag}")()
+            if spb < 0:
+                raise RuntimeError(f"CUDA step kernel: occupancy query failed with cudaError {-spb}")
+            if spb == 0:
+                raise RuntimeError(
+                    f"CUDA step kernel: one sample's working set, {self.team_bytes(dtype)} bytes "
+                    f"of shared memory in {dtype}, exceeds what a block of this card may have"
+                )
+            shape = self._shapes[dtype] = (spb, getattr(self.lib, f"engine_teams_per_sm_{tag}")())
+        return shape
 
     def teams_per_sm(self, dtype: torch.dtype) -> int:
         """Samples one SM holds at once (needs the card)."""
-        n = (self.lib.engine_teams_per_sm_f32 if dtype == torch.float32 else self.lib.engine_teams_per_sm_f64)()
-        if n < 0:
-            raise RuntimeError(f"CUDA step kernel: occupancy query failed with cudaError {-n}")
-        return n
+        return self.launch_shape(dtype)[1]
 
 
 _LIBS: dict = {}  # model key -> EngineLibrary
@@ -563,6 +646,7 @@ def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
         raise ValueError(f"model is on {m.device}, inputs on {qpos.device}")
     lib = load_library(m)
     fn = lib.fn(qpos.dtype)
+    lib.launch_shape(qpos.dtype)  # raises if a sample's working set does not fit a block
     B = qpos.shape[0]
     # sample-major: one contiguous row a sample, read and written by its team
     packed_in = torch.cat([qpos, qvel, ctrl], dim=1)

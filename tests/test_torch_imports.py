@@ -171,7 +171,16 @@ def test_registry():
     with pytest.raises(ValueError, match="engine"):
         envs.get_environment("unitree_go2_walk", device="cpu", engine="xla")
     assert envs.get_environment("unitree_go2_walk", device="cpu", engine="unfused").engine == "unfused"
-    with pytest.raises(ValueError):
-        envs.get_env_class("unitree_h1_walk")
+    from dial_mpc_tpu_torch.envs.unitree_go2_env import UnitreeGo2CrateEnv
+    from dial_mpc_tpu_torch.envs.unitree_h1_env import (
+        UnitreeH1LocoEnv, UnitreeH1PushCrateEnv, UnitreeH1WalkEnv,
+    )
+
+    assert envs.get_env_class("unitree_go2_crate_climb") is UnitreeGo2CrateEnv
+    assert envs.get_env_class("unitree_h1_walk") is UnitreeH1WalkEnv
+    assert envs.get_env_class("unitree_h1_loco") is UnitreeH1LocoEnv
+    assert envs.get_env_class("unitree_h1_push_crate") is UnitreeH1PushCrateEnv
+    with pytest.raises(ValueError):  # the Allegro hand is not ported yet
+        envs.get_env_class("allegro_reorient")
     envs.register_env("alias_for_test", UnitreeGo2Env, UnitreeGo2EnvConfig)
     assert isinstance(envs.get_environment("alias_for_test", device="cpu"), UnitreeGo2Env)
