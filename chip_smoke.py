@@ -2,17 +2,21 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N]
-        [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N] [--compare-only]
+        [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N]
+        [--allegro-steps N] [--compare-only]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
   2. build of every kernel's library from dial_mpc_tpu_torch/csrc, all nvcc
      runs started together: the step kernel and the solver kernel for each
-     scene of the legged tasks (Go2 flat, H1 walk, H1 loco, Go2 crate, H1 push
-     crate), and the solver kernel for a synthetic key with elliptic groups;
+     scene of the tasks (Go2 flat, H1 walk, H1 loco, Go2 crate, H1 push
+     crate, Allegro), and the solver kernel for a synthetic key with elliptic
+     groups;
   3. each kernel against its plain PyTorch version on the card, for each
      scene on a contact-rich batch (on the crate scenes posed against the
-     crate, and the states with a box contact counted):
+     crate, and the states with a box contact counted; on the Allegro scene
+     the active condim-6 slots and the elliptic rows in each cone zone
+     counted):
      - the step kernel: B = 2049 and B = 1, float64 and float32, n_steps = 4
        against four sequential launches, and two launches on the same inputs
        (bit for bit); the states at a joint limit counted; its occupancy
@@ -33,7 +37,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      launch counts checked: Go2 trot on the fused route (--steps), Go2 trot
      on the unfused route (--unfused-steps), Go2 seq-jump (--jump-steps), H1
      jog (--jog-steps), H1 loco (--loco-steps), Go2 crate climb
-     (--crate-steps) and H1 push crate (--push-steps) on the fused route;
+     (--crate-steps), H1 push crate (--push-steps) and Allegro in-hand
+     reorientation (--allegro-steps) on the fused route;
   5. the kernels' times beside their bounds.
 The last line is {"ok": true, "device": {...}}. With --compare-only the
 script stops after phase 3 and prints no such line.
@@ -58,12 +63,18 @@ if not torch.cuda.is_available():
 
 import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core import runner
+from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.physics import (
-    cuda_build, engine_cuda, forward, make_data, put_model, solver, solver_cuda, step,
+    cuda_build, engine_cuda, forward, make_data, put_model, solver, solver_cuda,
 )
+from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
 from dial_mpc_tpu_torch.tools import solver_cases
-from dial_mpc_tpu_torch.tools.scene_cases import SCENES, box_slots, start_qpos
+from dial_mpc_tpu_torch.tools.float_checks import (
+    FLOAT32_SENSITIVE_KEYS, MAX_FLIPPED, TOL_F32_DEFAULT, TOL_F64_DEFAULT, contact_rich_batch, departing,
+    tolerances,
+)
+from dial_mpc_tpu_torch.tools.scene_cases import SCENES, TIMESTEP, box_slots
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path
 
 DEVICE = "cuda"
@@ -72,18 +83,9 @@ B_FULL = 2049  # Nsample + 1 rollouts of the shipped configs
 H100_FP32_FLOPS = 67e12  # dense float32 outside the tensor cores, published peak
 H100_HBM_BYTES_PER_S = 3.35e12
 
-# float64: the tolerances the JAX package holds its own kernel to.
-TOL_F64 = {"qpos": 1e-9, "site_xpos": 1e-9, "x_pos": 1e-9, "cdist": 1e-9, "cpos": 1e-9}
-TOL_F64_DEFAULT = 1e-7
-# float32 kernel against the float64 plain version on the same inputs. One
-# rounding is 6e-8 relative. The batch is violent on purpose (random torques,
-# feet in the ground, joints at their limits): qacc reaches 1e3..1e4 and the
-# Newton solve amplifies rounding by the Hessian's conditioning, so qacc is
-# held to 0.5 absolute (about 1e-4 of its range), qvel to timestep times
-# that, qpos to timestep times qvel's; pre-step products to a few ulps.
-TOL_F32 = {"qacc": 0.5, "qvel": 1e-2, "qpos": 2e-4, "xd_vel": 1e-4, "xd_ang": 1e-4}
-TOL_F32_DEFAULT = 1e-5
-# The solver kernel, float64: the same arithmetic in another order (the
+# The step kernel's tolerances (float64, and float32 against float64) and
+# the float32 flip rule are in dial_mpc_tpu_torch/tools/float_checks.py,
+# which the CPU tests read too. The solver kernel, float64: the same arithmetic in another order (the
 # kernel carries jar and M dx from iteration to iteration, the plain version
 # recomputes them); E's own qacc tolerance.
 TOL_SOLVER_F64 = 1e-7
@@ -93,6 +95,10 @@ TOL_SOLVER_F64 = 1e-7
 # conditioning); qfrc = J' f is held to the same absolute 0.5 (forces of the
 # same batch reach 1e2..1e3).
 TOL_SOLVER_F32 = 0.5
+# At the Allegro key x is its qacc (6e4 at the median sample), and the step
+# kernel's qacc tolerances there hold for the same reason (float_checks.py's
+# TOL_F64_BY_KEY, TOL_F32_BY_KEY).
+TOL_SOLVER_BY_KEY = {"allegro": {"f64": 1e-5, "f32": 16.0}}
 # The synthetic problem is O(1)..O(10) and well conditioned (M = A A' + 6 I):
 # errors relative to max(1, |reference|max).
 TOL_SYNTHETIC = {"float64": 1e-9, "float32": 1e-3}
@@ -111,48 +117,12 @@ def sh(cmd):
     return subprocess.run(cmd, shell=True, capture_output=True, text=True).stdout.strip()
 
 
-def ctrl_bound(mj):
-    """Random ctrl is uniform in +/- this, per actuator: 8 where the motor is
-    unlimited (the Go2's), a quarter of its range where it is limited (the
-    H1's, up to 300 N m)."""
-    return np.where(np.asarray(mj.actuator_ctrllimited) > 0,
-                    0.25 * np.abs(np.asarray(mj.actuator_ctrlrange)).max(1), 8.0)
-
-
-def contact_rich_batch(name, mj, model, batch, seed=0, settle=5):
-    """States settled into contact by the plain step under random ctrl, from
-    the scene's start poses (tools/scene_cases.py; Go2 flat is the one the
-    kernels line reports)."""
-    rng = np.random.default_rng(seed)
-    dtype = model.dtype
-    qpos = start_qpos(name, mj, batch, rng)
-    hi = ctrl_bound(mj)
-
-    def t(a):
-        return torch.tensor(a, dtype=dtype, device=DEVICE)
-
-    d = make_data(model, batch).replace(qpos=t(qpos), qvel=t(rng.normal(0, 0.2, (batch, mj.nv))))
-    for _ in range(settle):
-        d = step(model, d.replace(ctrl=t(rng.uniform(-hi, hi, (batch, mj.nu)))), solver.solve_reference)
-    require(bool(torch.isfinite(d.qpos).all()), "settle rollout diverged")
-    return d.qpos.contiguous(), d.qvel.contiguous(), t(rng.uniform(-hi, hi, (batch, mj.nu)))
-
-
 def beyond_limits(model, qpos):
     """(B,) whether a limited joint of each state lies beyond its range."""
     lim = [j for j in range(model.njnt) if model.jnt_limited[j]]
     q = qpos[:, [model.jnt_qposadr[j] for j in lim]]
     jr = model.jnt_range[lim]
     return ((q < jr[:, 0]) | (q > jr[:, 1])).any(-1)
-
-
-# Float32 rounding can flip a branch of the step where a state sits on its
-# edge (a contact or a joint limit at its activation distance, two candidate
-# corners at the same depth): the float32 plain version then departs from the
-# float64 one as far as the kernel does. Such a sample is held to the float32
-# plain version on the same inputs instead, with the same tolerances; at most
-# this many samples of a batch may be such (no batch has shown more than 2).
-MAX_FLIPPED = 4
 
 
 def worst_over_limit(specs, limits, outs, refs, i):
@@ -163,13 +133,34 @@ def worst_over_limit(specs, limits, outs, refs, i):
     return {"output": name, "err": err, "limit": limit}
 
 
-def compare(model, outs, refs, tol, tol_default, what, plain32=None, flips=None):
+def dump_failure(what, name, a, b, limit, inputs):
+    """The samples of output ``name`` beyond ``limit``: their indices and
+    errors for the message, and their inputs saved under chiprun_out/ so that
+    they can be replayed where there is no card."""
+    err = (a.double() - b.double()).abs().reshape(a.shape[0], -1).max(-1).values
+    bad = (~(err <= limit)).nonzero().flatten()
+    worst = bad[err[bad].argsort(descending=True)][:16].tolist()
+    if inputs is not None:
+        os.makedirs("chiprun_out", exist_ok=True)
+        path = os.path.join("chiprun_out", what.replace(":", "").replace(" ", "_").replace("=", "") + ".npz")
+        np.savez(path, samples=np.array(worst), **{k: v[worst].double().cpu().numpy()
+                                                    for k, v in zip(("qpos", "qvel", "ctrl"), inputs)})
+    return f"{len(bad)} samples, worst {[(i, float(err[i])) for i in worst[:6]]}"
+
+
+def compare(model, outs, refs, tol, tol_default, what, plain32=None, flips=None, inputs=None,
+            sensitive=False):
     """Worst error of each output against refs; raises beyond the tolerance.
     With plain32 (the float32 plain version's outputs), the samples where it
-    departs from refs beyond the tolerance are held to it instead (see
-    MAX_FLIPPED); flips[what] lists each such sample with the kernel's and the
-    float32 plain version's worst error against float64, so that a flipped
-    branch (both depart alike) can be told from a drift."""
+    departs from refs beyond the tolerance are held to it instead; at a key
+    whose float32 step is ``sensitive`` (float_checks.FLOAT32_SENSITIVE_KEYS:
+    the reference's own float32 step departs too, through the solve's
+    conditioning) a sample where the kernel departs is held only to be
+    finite. At most MAX_FLIPPED samples may be either; flips[what]
+    lists each with the kernel's and the float32 plain version's worst error
+    against float64, so that a flipped branch (both depart alike) can be told
+    from a drift (tests/test_torch_physics.py checks on the CPU that the
+    reference's own float32 step departs at the samples listed)."""
     specs = engine_cuda.out_specs(model)
     limits = [tol.get(name, tol_default) for name, _ in specs]
     worst = {}
@@ -177,19 +168,27 @@ def compare(model, outs, refs, tol, tol_default, what, plain32=None, flips=None)
         flipped = torch.zeros(refs[0].shape[0], dtype=torch.bool, device=refs[0].device)
         for limit, p, b in zip(limits, plain32, refs):
             flipped |= ~((p.double() - b.double()).abs().max(-1).values <= limit)
+        held = [torch.where(flipped[:, None], p.double(), b.double()) for p, b in zip(plain32, refs)]
+        loose = departing(engine_cuda.OUTPUT_NAMES, outs, held, tol, tol_default) if sensitive else \
+            torch.zeros_like(flipped)
         flips[what] = [
             {"sample": i, "kernel_vs_f64": worst_over_limit(specs, limits, outs, refs, i),
-             "plain32_vs_f64": worst_over_limit(specs, limits, plain32, refs, i)}
-            for i in flipped.nonzero().flatten().tolist()
+             "plain32_vs_f64": worst_over_limit(specs, limits, plain32, refs, i),
+             "held_to": "finite (float32-sensitive key)" if bool(loose[i]) else "float32 plain version"}
+            for i in (flipped | loose).nonzero().flatten().tolist()
         ]
-        refs = [torch.where(flipped[:, None], p.double(), b.double()) for p, b in zip(plain32, refs)]
         if len(flips[what]) > MAX_FLIPPED:
             raise AssertionError(f"{what}: float32 flips a branch in {len(flips[what])} samples")
+        for a in outs:
+            require(bool(torch.isfinite(a[loose]).all()), f"{what}: a departing sample is not finite")
+        refs = [torch.where(loose[:, None], a.double(), h) for a, h in zip(outs, held)]
     for (name, _), limit, a, b in zip(specs, limits, outs, refs):
         err = float((a.double() - b.double()).abs().max())
         worst[name] = err
         if not (err <= limit):  # also catches NaN
-            raise AssertionError(f"{what}: {name} differs by {err:.3e} > {limit:.1e}")
+            raise AssertionError(
+                f"{what}: {name} differs by {err:.3e} > {limit:.1e}; {dump_failure(what, name, a, b, limit, inputs)}"
+            )
     return worst
 
 
@@ -205,6 +204,7 @@ def cuda_ms(fn, n):
 
 def phase_compare(name, mj):
     """Phase 3, kernel E on one scene; returns what phase 5 needs."""
+    tol64, tol32 = tolerances(name, torch.float64)[0], tolerances(name, torch.float32)[0]
     m64 = put_model(mj, device=DEVICE, dtype=torch.float64)
     m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
     qpos, qvel, ctrl = contact_rich_batch(name, mj, m64, B_FULL)
@@ -213,7 +213,8 @@ def phase_compare(name, mj):
     ref1 = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1)
     out1 = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049"] = compare(m64, out1, ref1, TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 B=2049")
+    errs["f64_B2049"] = compare(m64, out1, ref1, tol64, TOL_F64_DEFAULT, f"{name}: f64 B=2049",
+                                inputs=(qpos, qvel, ctrl))
     counts = {"samples_in_contact": int((out1[8][:, : m64.ncon] < 0).any(-1).sum())}
     require(counts["samples_in_contact"] > 0, f"{name}: no sample of the batch is in contact")
     if box_slots(m64.pair_table):
@@ -223,7 +224,7 @@ def phase_compare(name, mj):
     one = engine_cuda.step_core(m64, qpos[:1], qvel[:1], ctrl[:1], 1)
     torch.cuda.synchronize()
     errs["f64_B1"] = compare(
-        m64, one, [r[:1] for r in ref1], TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 B=1"
+        m64, one, [r[:1] for r in ref1], tol64, TOL_F64_DEFAULT, f"{name}: f64 B=1"
     )
 
     # four steps under constant ctrl drive joints into their limits: the
@@ -234,7 +235,8 @@ def phase_compare(name, mj):
     for _ in range(3):
         seq = engine_cuda.step_core(m64, seq[0].contiguous(), seq[1].contiguous(), ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049_n4"] = compare(m64, out4, ref4, TOL_F64, TOL_F64_DEFAULT, f"{name}: f64 n_steps=4")
+    errs["f64_B2049_n4"] = compare(m64, out4, ref4, tol64, TOL_F64_DEFAULT, f"{name}: f64 n_steps=4",
+                                   inputs=(qpos, qvel, ctrl))
     n_limit = int(beyond_limits(m64, engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)[0]).sum())
     if n_limit == 0:
         raise AssertionError(f"{name}: no sample of the batch reached a joint limit")
@@ -247,12 +249,14 @@ def phase_compare(name, mj):
     ref32 = engine_cuda.step_core_reference(m64, q32.double(), v32.double(), c32.double(), 1)
     plain32 = engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
     torch.cuda.synchronize()
-    errs["f32_B2049"] = compare(m32, out32, ref32, TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 B=2049", plain32, flips)
+    sens = name in FLOAT32_SENSITIVE_KEYS
+    errs["f32_B2049"] = compare(m32, out32, ref32, tol32, TOL_F32_DEFAULT, f"{name}: f32 B=2049", plain32, flips,
+                                inputs=(q32, v32, c32), sensitive=sens)
     one32 = engine_cuda.step_core(m32, q32[:1], v32[:1], c32[:1], 1)
     torch.cuda.synchronize()
     errs["f32_B1"] = compare(
-        m32, one32, [r[:1] for r in ref32], TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 B=1",
-        [p[:1] for p in plain32], flips,
+        m32, one32, [r[:1] for r in ref32], tol32, TOL_F32_DEFAULT, f"{name}: f32 B=1",
+        [p[:1] for p in plain32], flips, sensitive=sens,
     )
     # the float32 kernel on the states that sit at joint limits (after three steps)
     at_limit = engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)
@@ -264,7 +268,8 @@ def phase_compare(name, mj):
     plain32_l = engine_cuda.step_core_reference(m32, ql.float(), vl.float(), c32, 1)
     torch.cuda.synchronize()
     errs["f32_B2049_at_limits"] = compare(
-        m32, out32_l, ref32_l, TOL_F32, TOL_F32_DEFAULT, f"{name}: f32 at joint limits", plain32_l, flips
+        m32, out32_l, ref32_l, tol32, TOL_F32_DEFAULT, f"{name}: f32 at joint limits", plain32_l, flips,
+        sensitive=sens,
     )
     out32_4 = engine_cuda.step_core(m32, q32, v32, c32, 4)
     seq32 = out32
@@ -289,7 +294,7 @@ def phase_compare(name, mj):
         "compare", ok=True, scene=name, samples_at_joint_limit=n_limit, **counts,
         samples_float32_flips_a_branch=flips, max_flipped=MAX_FLIPPED,
         repeat_launch_bit_equal=True,
-        tolerance={"f64": {**TOL_F64, "rest": TOL_F64_DEFAULT}, "f32": {**TOL_F32, "rest": TOL_F32_DEFAULT}},
+        tolerance={"f64": {**tol64, "rest": TOL_F64_DEFAULT}, "f32": {**tol32, "rest": TOL_F32_DEFAULT}},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
         n_steps4_equals_four_launches=True,
     )
@@ -365,8 +370,50 @@ def solver_rows(model, qpos, qvel, ctrl):
     return args, (d.qacc, d.qfrc_constraint)
 
 
-def solver_errors(outs, refs, tol, what, relative=False):
+ZONES = ("top", "middle", "bottom")
+
+
+def elliptic_counts(model, args, refs):
+    """The active condim-6 slots, and the rows of active elliptic groups in
+    each zone of the cone (top: separating; bottom: pressed in with little
+    slip, inside the cone; middle: on it, the rank-1 term), as the solvers'
+    group terms decide them, at the solve's start (qacc_smooth) and at its
+    result."""
+    J, D, aref, _, eta, _, qs = args
+    ir = float(model.opt.impratio)
+    out = {"active_condim6_slots": 0}
+    for at, x in (("start", qs), ("result", refs[0])):
+        jar = torch.einsum("bij,bj->bi", J, x) - aref
+        for z in ZONES:
+            out[f"rows_{z}_at_{at}"] = 0
+        for row0, dim in elliptic_groups(model):
+            active = D[:, row0] > 0
+            N, mu = jar[:, row0], eta[:, row0 + 1]
+            u = eta[:, row0 + 1 : row0 + dim] * jar[:, row0 + 1 : row0 + dim]
+            U = torch.sqrt((u * u).sum(-1) + 1e-30)
+            top = N >= U
+            bottom = ~top & (N <= -(ir / (mu * mu).clamp_min(1e-12)) * U)
+            for z, mask in zip(ZONES, (top, ~top & ~bottom, bottom)):
+                out[f"rows_{z}_at_{at}"] += dim * int((active & mask).sum())
+            if dim == 6 and at == "start":
+                out["active_condim6_slots"] += int(active.sum())
+    return out
+
+
+def solver_errors(outs, refs, tol, what, relative=False, sensitive=False, flips=None):
+    """Worst error of x and qfrc; raises beyond tol. At a float32-sensitive
+    key (compare's ``sensitive``) up to MAX_FLIPPED samples may depart, each
+    finite and listed in flips[what]."""
     worst = {}
+    if sensitive:
+        over = torch.zeros(outs[0].shape[0], dtype=torch.bool, device=outs[0].device)
+        for a, b in zip(outs, refs):
+            over |= ~((a.double() - b.double()).abs().max(-1).values <= tol)
+        flips[what] = over.nonzero().flatten().tolist()
+        require(len(flips[what]) <= MAX_FLIPPED, f"solver kernel, {what}: {len(flips[what])} samples depart")
+        require(all(bool(torch.isfinite(a[over]).all()) for a in outs), f"solver kernel, {what}: not finite")
+        outs = [a[~over] for a in outs]
+        refs = [b[~over] for b in refs]
     for name, a, b in zip(("x", "qfrc"), outs, refs):
         err = float((a.double() - b.double()).abs().max())
         if relative:
@@ -380,7 +427,10 @@ def solver_errors(outs, refs, tol, what, relative=False):
 def phase_solver_compare(scene, m64, m32, states):
     """Phase 3, kernel S on one scene's rows (and, with the Go2 flat scene,
     the synthetic problem); returns what phase 5 needs."""
-    errs, counts = {}, {}
+    errs, counts, flips = {}, {}, {}
+    sensitive = scene in FLOAT32_SENSITIVE_KEYS
+    tol64 = TOL_SOLVER_BY_KEY.get(scene, {}).get("f64", TOL_SOLVER_F64)
+    tol32 = TOL_SOLVER_BY_KEY.get(scene, {}).get("f32", TOL_SOLVER_F32)
     lay = engine_cuda.static_layout(m64)
     r0 = len(lay["fric_dof"])  # rows: friction loss, limits from r0, contacts from r1
     r1 = r0 + len(lay["limit_jnt"])
@@ -395,24 +445,34 @@ def phase_solver_compare(scene, m64, m32, states):
         )
         if r0:
             counts[name]["samples_with_friction_loss_row"] = int((D[:, :r0] > 0).any(-1).sum())
+        if elliptic_groups(m64):
+            counts[name].update(elliptic_counts(m64, args, refs))
         outs = solver_cuda.solve_batched(m64, *args)
         torch.cuda.synchronize()
-        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, TOL_SOLVER_F64, f"{scene} f64 {name}")
+        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, tol64, f"{scene} f64 {name}")
         one = solver_cuda.solve_batched(m64, *[a[:1] for a in args])
         torch.cuda.synchronize()
-        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], TOL_SOLVER_F64, f"{scene} f64 B=1 {name}")
+        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], tol64, f"{scene} f64 B=1 {name}")
         args32 = tuple(a.float() for a in args)
         refs32 = solver_cuda.solve_batched_reference(m64, *[a.double() for a in args32])
         outs32 = solver_cuda.solve_batched(m32, *args32)
         torch.cuda.synchronize()
-        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, TOL_SOLVER_F32, f"{scene} f32 {name}")
+        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, tol32, f"{scene} f32 {name}",
+                                                  sensitive=sensitive, flips=flips)
         one32 = solver_cuda.solve_batched(m32, *[a[:1] for a in args32])
         torch.cuda.synchronize()
-        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], TOL_SOLVER_F32, f"{scene} f32 B=1 {name}")
+        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], tol32, f"{scene} f32 B=1 {name}",
+                                               sensitive=sensitive, flips=flips)
         if name == "settled":
             timing_args, timing_args32 = args, args32
     require(counts["at_limits"]["samples_with_active_limit_row"] > 0, f"{scene}: no sample has an active joint-limit row")
     require(counts["settled"]["samples_with_active_contact_row"] > 0, f"{scene}: no sample is in contact")
+    if elliptic_groups(m64):
+        total = lambda key: sum(c[key] for c in counts.values())
+        require(total("active_condim6_slots") > 0, f"{scene}: no condim-6 slot is active")
+        for z in ZONES:
+            require(total(f"rows_{z}_at_start") + total(f"rows_{z}_at_result") > 0,
+                    f"{scene}: no elliptic row lies in the cone's {z} zone")
     if scene == "go2":
         zones = phase_synthetic_solver(errs)
     else:
@@ -420,7 +480,8 @@ def phase_solver_compare(scene, m64, m32, states):
 
     emit(
         "solver_compare", ok=True, scene=scene, rows=counts, synthetic_samples=zones,
-        tolerance={"f64": TOL_SOLVER_F64, "f32": TOL_SOLVER_F32, "synthetic_relative": TOL_SYNTHETIC},
+        samples_float32_departs=flips, max_flipped=MAX_FLIPPED,
+        tolerance={"f64": tol64, "f32": tol32, "synthetic_relative": TOL_SYNTHETIC},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
     )
     return solver_timing(scene, m64, m32, timing_args, timing_args32, errs)
@@ -526,7 +587,8 @@ def phase_fused_vs_unfused(scene, m64, states):
         fused = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
         unfused = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1, solver.solve)
         torch.cuda.synchronize()
-        errs[name] = compare(m64, fused, unfused, TOL_F64, TOL_F64_DEFAULT, f"{scene}: fused vs unfused, {name}")
+        errs[name] = compare(m64, fused, unfused, tolerances(scene, torch.float64)[0], TOL_F64_DEFAULT,
+                             f"{scene}: fused vs unfused, {name}")
     require(solver_cuda.solve_batched.launches == before + 2, "the unfused step did not launch the solver kernel")
     emit("fused_vs_unfused", ok=True, scene=scene, samples_at_joint_limit=states["n_limit"],
          max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs)
@@ -536,7 +598,6 @@ def phase_small_input():
     """The whole planner on a small input: the card (kernel) against the CPU
     (plain physics), float64, with the same injected noise."""
     from dial_mpc_tpu_torch.core.dial_config import DialConfig
-    from dial_mpc_tpu_torch.core.dial_core import MBDPI
     from dial_mpc_tpu_torch.utils.io_utils import load_dataclass_from_dict
 
     with open(get_example_path("unitree_go2_trot.yaml")) as f:
@@ -574,28 +635,47 @@ WIDTHS = {
     "unitree_h1_loco": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
     "unitree_go2_crate_climb": dict(Nsample=2048, Hsample=25, Hnode=5, Ndiffuse=4, Ndiffuse_init=10),
     "unitree_h1_push_crate": dict(Nsample=2048, Hsample=24, Hnode=6, Ndiffuse=4, Ndiffuse_init=10),
+    "allegro_reorient": dict(Nsample=2048, Hsample=20, Hnode=4, Ndiffuse=2, Ndiffuse_init=10),
 }
 
 
-def phase_path(example, engine, n_steps, same_as=None):
-    """One path through runner.run at the shipped width, float32. Both launch
-    counts are set to 0 just before and read just after. The route's kernel
-    must have been launched once per env step; besides, env.reset runs the
-    plain forward once on either route, and its solve stage is one launch of
-    the solver kernel. ``same_as`` is the qpos trajectory of another route's
-    run of the same example and seed, which this run must follow."""
+def phase_path(example, engine, n_steps, same_as=None, nsample=None):
+    """One path through runner.run at the shipped width (or at ``nsample``
+    samples), float32. Both launch counts are set to 0 just before and read
+    just after. The route's kernel must have been launched once per env step;
+    besides, env.reset runs the plain forward once on either route, and its
+    solve stage is one launch of the solver kernel. ``same_as`` is the qpos
+    trajectory of another route's run of the same example and seed, which
+    this run must follow."""
     with open(get_example_path(example + ".yaml")) as f:
         cfg = yaml.safe_load(f)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     cfg.update(n_steps=n_steps, output_dir=out_dir)
     width = {k: cfg[k] for k in WIDTHS[example]}
     require(width == WIDTHS[example], width)
-    require(cfg["dt"] == cfg["timestep"], "the shipped configs run one physics step per env step")
+    if nsample is not None:
+        cfg["Nsample"] = width["Nsample"] = nsample
+    # physics steps an env step: one launch of the step kernel runs them all
+    n_frames = round(cfg["dt"] / cfg["timestep"])
+
+    # the rollouts the planner's guard gives zero weight (non-finite reward),
+    # counted on the card and read once at the end
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    reverse_once = MBDPI.reverse_once
+
+    def counting_reverse_once(self, *a, **kw):
+        Ybar, info = reverse_once(self, *a, **kw)
+        dropped.add_((~torch.isfinite(info["rews"])).sum())
+        return Ybar, info
 
     engine_cuda.step_core.launches = 0
     solver_cuda.solve_batched.launches = 0
+    MBDPI.reverse_once = counting_reverse_once
     t0 = time.time()
-    summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32, engine=engine)
+    try:
+        summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32, engine=engine)
+    finally:
+        MBDPI.reverse_once = reverse_once
     wall = time.time() - t0
     launches = {"engine_step": engine_cuda.step_core.launches,
                 "solver_newton": solver_cuda.solve_batched.launches}
@@ -615,13 +695,29 @@ def phase_path(example, engine, n_steps, same_as=None):
     nq, nv, nu = (final.pipeline_state.qpos.shape[1], final.pipeline_state.qvel.shape[1],
                   final.pipeline_state.ctrl.shape[1])
     require(states.shape == (n_steps, 1 + nq + nv + nu), states.shape)
-    qpos = states[:, 1 : 1 + nq]
+    qpos, qvel = states[:, 1 : 1 + nq], states[:, 1 + nq : 1 + nq + nv]
     require(np.isfinite(states).all(), "non-finite state")
     require(np.isfinite(summary["rews"]).all(), "non-finite reward")
-    require(np.isfinite(summary["rews_plan"]).all(), "non-finite planned reward")
+    # the state the planner froze (its advance diverged) repeats exactly
+    guards = dict(rollouts_dropped=int(dropped),
+                  states_frozen=int((np.diff(states[:, 1 : 1 + nq + nv], axis=0) == 0).all(-1).sum()),
+                  steps_with_nonfinite_planned_reward=int((~np.isfinite(summary["rews_plan"])).sum()))
+    if example != "allegro_reorient":
+        require(np.isfinite(summary["rews_plan"]).all(), "non-finite planned reward")
     advance = float(qpos[-1, 0] - qpos[0, 0])
     extra = {}
-    if example == "unitree_go2_trot":  # still walking
+    if example == "allegro_reorient":
+        # the ball does not explode; the guards are printed. The reference's
+        # behaviour gate (tests/test_behavior.py: the ball's wz averages above
+        # +0.01 rad/s over 50 steps) was calibrated at its Nsample of 128 and
+        # is held there; at the shipped 2048 the mean is printed (it is
+        # negative at seed 0: PERF.md section 6, ROADMAP C5).
+        wz = qvel[:, 5]
+        extra = dict(ball_wz_mean=float(wz.mean()), ball_wz_abs_max=float(np.abs(wz).max()))
+        require(extra["ball_wz_abs_max"] < 20.0, f"ball angular velocity reached {extra['ball_wz_abs_max']:.2f}")
+        if nsample == 128 and n_steps >= 50:
+            require(extra["ball_wz_mean"] > 0.01, f"ball wz averaged {extra['ball_wz_mean']:+.4f} rad/s")
+    elif example == "unitree_go2_trot":  # still walking
         require(qpos[:, 2].min() > 0.18, f"base fell to {qpos[:, 2].min():.3f} m")
         if n_steps >= 50:
             require(advance > 0.05, f"base x advanced only {advance:.3f} m")
@@ -656,13 +752,13 @@ def phase_path(example, engine, n_steps, same_as=None):
     step_ms = sorted(1e3 / f for f in summary["freqs"][1:])
     emit(
         "path", ok=True, example=example, engine=engine, n_steps=n_steps, **width, dtype="float32",
-        launches=launches, launches_expected=want, env_steps=expected,
+        launches=launches, launches_expected=want, env_steps=expected, physics_steps_per_launch=n_frames,
         launches_first_step=1 + per_level * cfg["Ndiffuse_init"],
         launches_per_step=1 + per_level * cfg["Ndiffuse"],
         first_step_ms=1e3 / summary["freqs"][0], control_step_ms_median=step_ms[len(step_ms) // 2],
         control_step_ms_p90=step_ms[int(len(step_ms) * 0.9)], mean_reward=summary["mean_reward"],
         base_x_final=float(qpos[-1, 0]), base_x_advance=advance, base_z_min=float(qpos[:, 2].min()),
-        wall_s=wall, **extra,
+        wall_s=wall, **guards, **extra,
     )
     return dict(launches=launches[mine], step_ms=step_ms[len(step_ms) // 2],
                 p90_ms=step_ms[int(len(step_ms) * 0.9)], first_ms=1e3 / summary["freqs"][0], qpos=qpos)
@@ -716,6 +812,8 @@ def main():
     ap.add_argument("--loco-steps", type=int, default=20, help="control steps of H1 loco, fused route")
     ap.add_argument("--crate-steps", type=int, default=30, help="control steps of Go2 crate climb, fused route")
     ap.add_argument("--push-steps", type=int, default=20, help="control steps of H1 push crate, fused route")
+    ap.add_argument("--allegro-steps", type=int, default=50,
+                    help="control steps of Allegro in-hand reorientation, fused route")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
     args = ap.parse_args()
@@ -733,7 +831,7 @@ def main():
     mjs = {}
     for name, (robot, xml) in SCENES.items():
         mjs[name] = load_scene(robot, xml)
-        mjs[name].opt.timestep = 0.02
+        mjs[name].opt.timestep = TIMESTEP.get(name, 0.02)
     build_all({name: put_model(mj, device=DEVICE, dtype=torch.float32) for name, mj in mjs.items()})
 
     keys_e, keys_s = {}, {}
@@ -766,6 +864,8 @@ def main():
     paths["h1_loco"] = phase_path("unitree_h1_loco", "fused", args.loco_steps)
     paths["go2_crate_climb"] = phase_path("unitree_go2_crate_climb", "fused", args.crate_steps)
     paths["h1_push_crate"] = phase_path("unitree_h1_push_crate", "fused", args.push_steps)
+    paths["allegro_reorient"] = phase_path("allegro_reorient", "fused", args.allegro_steps)
+    paths["allegro_reorient_gate"] = phase_path("allegro_reorient", "fused", 50, nsample=128)
     fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
 
     def kernel_line(name, source, replaces, launches, t, **more):

@@ -9,10 +9,12 @@
 // Stages, per sample: kinematics -> geom/site frames -> CoM and spatial
 // inertias -> com velocities -> RNE bias -> CRB mass matrix -> passive and
 // actuation -> collision over the static pair table -> constraint rows ->
-// sparse Newton solve with exact line search -> Euler integration with the
-// quaternion update -> maximal-coordinate views taken at the pre-step
-// kinematics. With n_steps > 1 the (qpos, qvel) carry stays in shared memory
-// and only the last substep writes outputs.
+// sparse Newton solve with exact line search -> (with eulerdamp) the implicit
+// damping solve (M + h diag(damping)) qacc = qfrc_smooth + J' force on M's
+// factor schedule -> Euler integration with the quaternion update ->
+// maximal-coordinate views taken at the pre-step kinematics. With n_steps > 1
+// the (qpos, qvel) carry stays in shared memory and only the last substep
+// writes outputs.
 //
 // What bounds it: traffic is NQ+NV+NU values in and N_OUT_ROWS values out
 // per sample and launch (49 + 300 for the Go2 flat scene, about 2.9 MB at
@@ -36,13 +38,15 @@
 // The boundary is sample-major: a sample's inputs and outputs are one
 // contiguous row, which its team reads and writes together.
 //
-// Scope: free, hinge and slide joints; plane-sphere, plane-capsule,
-// plane-box, sphere-box, capsule-box and box-box pairs of condim 3 (the
-// reference's approximate manifolds, physics/collision.py); pyramidal cones;
-// joint limits and friction-loss dofs; plain Euler (eulerdamp disabled). The
+// Scope: free, hinge and slide joints; the plane-{sphere,capsule,box},
+// sphere-{sphere,capsule,box}, capsule-{capsule,box} and box-box pairs (the
+// reference's approximate manifolds, physics/collision.py) at condim 3 or 6;
+// pyramidal or elliptic cones (an elliptic slot is one group of the solve);
+// joint limits and friction-loss dofs; Euler with or without eulerdamp. The
 // Python wrapper refuses any other model before it builds this file. What a
-// model lacks is compiled out (PAIR_KINDS, HAS_SLIDE, NFRIC): a scene without
-// box pairs, slide joints or friction-loss dofs carries none of their code.
+// model lacks is compiled out (PAIR_KINDS, HAS_SLIDE, NFRIC, CON_TABLE,
+// NCON6, NGROUPS, EULERDAMP): a scene of condim-3 pyramids without box pairs,
+// slide joints, friction-loss dofs or eulerdamp carries none of their code.
 
 #include <cuda_runtime.h>
 
@@ -124,7 +128,8 @@ __device__ __forceinline__ void axis_frame(T* frame, const T* n, const T* axis) 
 
 enum PairKind {
   PK_PLANE_SPHERE = 0, PK_PLANE_CAPSULE = 1, PK_PLANE_BOX = 2,
-  PK_SPHERE_BOX = 3, PK_CAPSULE_BOX = 4, PK_BOX_BOX = 5
+  PK_SPHERE_BOX = 3, PK_CAPSULE_BOX = 4, PK_BOX_BOX = 5,
+  PK_SPHERE_SPHERE = 6, PK_SPHERE_CAPSULE = 7, PK_CAPSULE_CAPSULE = 8
 };
 // whether the model has a pair of kind k; the others are compiled out
 __device__ __forceinline__ constexpr bool has_pair_kind(int k) { return (PAIR_KINDS >> k) & 1; }
@@ -138,6 +143,22 @@ __device__ __forceinline__ T plane_sphere(const T* pp, const T* pn, const T* c, 
   const T dist = v3_dot(pn, rel) - r;
   v3_scale(tmp, pn, r + T(0.5) * dist);
   v3_sub(pos, c, tmp);
+  return dist;
+}
+
+// the distance of the spheres (c1, r1) and (c2, r2), the contact point halfway
+// through the overlap and the normal n from 1 to 2
+template <typename T>
+__device__ __forceinline__ T sphere_sphere(const T* c1, T r1, const T* c2, T r2, T* pos, T* n) {
+  T dvec[3], tmp[3];
+  v3_sub(dvec, c2, c1);
+  const T dc = sqrt(v3_dot(dvec, dvec));
+  const T dd = tmax(dc, T(1e-15));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) n[i] = dvec[i] / dd;
+  const T dist = dc - (r1 + r2);
+  v3_scale(tmp, n, r1 + T(0.5) * dist);
+  v3_add(pos, c1, tmp);
   return dist;
 }
 
@@ -274,6 +295,36 @@ __device__ __forceinline__ void collide_pair(const ModelReal<T>& R, const ModelT
       con_dist[slot + e] = sphere_box(ep, s1[0], p2, R2, s2, con_pos[slot + e], n);
       make_frame(con_frame[slot + e], n);
     }
+  } else if (has_pair_kind(PK_SPHERE_SPHERE) && kind == PK_SPHERE_SPHERE) {
+    T n[3];
+    con_dist[slot] = sphere_sphere(p1, s1[0], p2, s2[0], con_pos[slot], n);
+    make_frame(con_frame[slot], n);
+  } else if (has_pair_kind(PK_SPHERE_CAPSULE) && kind == PK_SPHERE_CAPSULE) {
+    // the sphere against the closest point of the capsule's segment
+    T rel[3], cp[3], n[3];
+    v3_sub(rel, p1, p2);
+    const T t = tclip(v3_dot(rel, axis), -s2[1], s2[1]);
+    v3_scale(tmp, axis, t);
+    v3_add(cp, p2, tmp);
+    con_dist[slot] = sphere_sphere(p1, s1[0], cp, s2[0], con_pos[slot], n);
+    make_frame(con_frame[slot], n);
+  } else if (has_pair_kind(PK_CAPSULE_CAPSULE) && kind == PK_CAPSULE_CAPSULE) {
+    // closest points of the two segments (axes pn and axis), the clamped
+    // solve; parallel axes (denom <= 1e-12) start from s = 0
+    T r[3], q1[3], q2[3], n[3];
+    v3_sub(r, p1, p2);
+    const T bd = v3_dot(pn, axis), dd = v3_dot(pn, r), e = v3_dot(axis, r);
+    const T denom = T(1) - bd * bd;
+    T sp = denom > T(1e-12) ? (bd * e - dd) / tmax(denom, T(1e-12)) : T(0);
+    sp = tclip(sp, -s1[1], s1[1]);
+    const T tp2 = tclip(bd * sp + e, -s2[1], s2[1]);
+    sp = tclip(bd * tp2 - dd, -s1[1], s1[1]);
+    v3_scale(tmp, pn, sp);
+    v3_add(q1, p1, tmp);
+    v3_scale(tmp, axis, tp2);
+    v3_add(q2, p2, tmp);
+    con_dist[slot] = sphere_sphere(q1, s1[0], q2, s2[0], con_pos[slot], n);
+    make_frame(con_frame[slot], n);
   } else if (has_pair_kind(PK_BOX_BOX) && kind == PK_BOX_BOX) {
     // each box's corners against the other (the first box's first), the
     // deepest 8 of the 16; a candidate is recomputed once it is chosen
@@ -308,15 +359,29 @@ __device__ __forceinline__ void collide_pair(const ModelReal<T>& R, const ModelT
 
 // ---------------------------------------------------------------------------
 // The team Newton solve (newton_solve_team.cuh) on this model's static
-// sparsity: unilateral rows, and friction-loss rows where the model has
-// friction-loss dofs; lists read from global memory.
+// sparsity: unilateral rows, friction-loss rows where the model has
+// friction-loss dofs, and an elliptic group a slot where its cones are
+// elliptic; lists read from global memory. With eulerdamp the solve also
+// returns J' force.
 // ---------------------------------------------------------------------------
 
 struct EnginePolicy {
   static constexpr int NV = mc::NV, NEFC = mc::NEFC;
   static constexpr int ITERATIONS = mc::ITERATIONS, LS_ITERATIONS = mc::LS_ITERATIONS;
-  static constexpr bool DENSE = false, FRICTION_ROWS = mc::NFRIC > 0, CONSTRAINT_FORCE = false;
-  static constexpr int NGROUPS = 0;
+  static constexpr bool DENSE = false, FRICTION_ROWS = mc::NFRIC > 0;
+  static constexpr bool CONSTRAINT_FORCE = mc::EULERDAMP;
+  static constexpr int NGROUPS = mc::NGROUPS;
+  // first row and dimension of elliptic group g (read at compile-time indices)
+  static __host__ __device__ constexpr int group_row0(int g) {
+    constexpr int a[] = MCI_group_row0;
+    return a[g];
+  }
+  static __host__ __device__ constexpr int group_dim(int g) {
+    constexpr int a[] = MCI_group_dim;
+    return a[g];
+  }
+  template <typename T>
+  static __device__ __forceinline__ T impratio() { return model_scalars<T>().impratio; }
   static __device__ __forceinline__ const short* jrow_adr() { return g_lists.jrow_adr; }
   static __device__ __forceinline__ const short* jrow_col() { return g_lists.jrow_col; }
   static __device__ __forceinline__ const short* jcol_adr() { return g_lists.jcol_adr; }
@@ -325,6 +390,8 @@ struct EnginePolicy {
   static __device__ __forceinline__ const short* mrow_col() { return g_lists.mrow_col; }
   static __device__ __forceinline__ const short* hrow_adr() { return g_lists.hrow_adr; }
   static __device__ __forceinline__ const short* hrow() { return g_lists.hrow; }
+  static __device__ __forceinline__ const short* hgrp_adr() { return g_lists.hgrp_adr; }
+  static __device__ __forceinline__ const short* hgrp() { return g_lists.hgrp; }
   static __device__ __forceinline__ const auto& hfac() { return g_hfac; }
 };
 
@@ -350,13 +417,18 @@ struct StepShared {
       T cdof_dot[NV][6], cacc[NBODY][6], cfrc[NBODY][6];
       T F[NV][6];  // composite inertia times cdof
     } s;
-    struct {  // the two solves, and the contact frames before the second
+    struct {  // the solves, and the contact frames before the Newton solve
       T A[NV][NV], L[NV][NV], b[NV], w[NV], y[NV];
       T force[NEFC1], quad_w[NEFC1];
-      T con_frame[NCON1][9], con_jac[NCON1][3][NV];  // Jn, Jt1, Jt2 on the support
+      // Jn, Jt1, Jt2 of each slot on its support, then the rotational
+      // Jacobians along the frame of each condim-6 slot (block NCON +
+      // con_rot[slot]); once the rows are built, the elliptic groups' scratch
+      T con_frame[NCON1][9], con_jac[NCON1 + NCON6][3][NV];
     } c;
   };
 };
+static_assert(list_scratch_size<EnginePolicy>() <= (NCON1 + NCON6) * 3 * NV,
+              "the groups' scratch must fit in the contact Jacobians it aliases");
 
 // ---------------------------------------------------------------------------
 // one physics step
@@ -634,11 +706,19 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
     }
     const T* frame = c.con_frame[slot];
     for (int a = 0; a < 3; ++a) c.con_jac[slot][a][i] = v3_dot(dj, frame + 3 * a);
+    if constexpr (NCON6 > 0) {
+      const int k6 = tp.con_rot[slot];
+      if (k6 >= 0) {  // rotational: body 2's minus body 1's angular part
+        T dr[3];
+        for (int x = 0; x < 3; ++x) dr[x] = (in2 ? cd[x] : T(0)) - (in1 ? cd[x] : T(0));
+        for (int a = 0; a < 3; ++a) c.con_jac[NCON + k6][a][i] = v3_dot(dr, frame + 3 * a);
+      }
+    }
   }
   tm.sync();
 
   // ---- constraint rows, one lane a row: friction-loss dofs, joint limits,
-  // then four pyramid facets a contact ----
+  // then the contact rows (four pyramid facets a slot, or the crow table) ----
   const T timestep = C.timestep;
   for (int r = lane; r < NEFC; r += LANES) {
     if (r < NFRIC) {
@@ -663,6 +743,46 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       T ar = ref_acc(R.jnt_solref[j], R.jnt_solimp[j], timestep, imp, pos, sign * S.qv[dadr]);
       T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[dadr], T(MJ_MINVAL));
       S.J[r][dadr] = sign * active;
+      S.D[r] = active / Rr;
+      S.aref[r] = ar * active;
+    } else if constexpr (CON_TABLE) {
+      // elliptic: the normal row, or friction row dir alone (its aref has no
+      // position term, its R is R_n mu^2 / (eta^2 impratio)); pyramidal: the
+      // facet n +/- mu_k d_k, d_k a tangent or (condim 6) a rotation
+      const int v = tp.crow[r - NFRIC - NLIMIT];
+      const int slot = v >> 4, dir = (v >> 1) & 7;
+      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
+      const T pos = S.con_dist[slot] - R.con_includemargin[slot];
+      const T active = S.con_dist[slot] < R.con_includemargin[slot] ? T(1) : T(0);
+      const T imp = impedance(R.con_solimp[slot], pos);
+      const T invw_t = R.body_invweight0[b1][0] + R.body_invweight0[b2][0];
+      const T* Jn = c.con_jac[slot][0];
+      const T* Jd = dir < 3 ? c.con_jac[slot][dir] : c.con_jac[NCON + tp.con_rot[slot]][dir - 3];
+      T Rr, cd = T(1), posr = pos;  // the row is Jd (elliptic) or Jn + cd Jd
+      if constexpr (ELLIPTIC) {
+        const T Rn = tmax((T(1) - imp) / imp * invw_t, T(MJ_MINVAL));
+        Rr = Rn;
+        if (dir > 0) {
+          const T mu = R.con_friction[slot][0], eta = R.con_friction[slot][dir - 1];
+          Rr = Rn * mu * mu / tmax(eta * eta * C.impratio, T(MJ_MINVAL));
+          posr = T(0);
+        }
+      } else {
+        const T invw_r = R.body_invweight0[b1][1] + R.body_invweight0[b2][1];
+        const T mu = R.con_friction[slot][dir - 1];
+        const T invw_fac = invw_t + mu * mu * (dir < 3 ? invw_t : invw_r);
+        Rr = tmax((T(1) - imp) / imp * invw_fac * T(2) * mu * mu, T(MJ_MINVAL));
+        cd = (v & 1) ? -mu : mu;
+      }
+      T vel = T(0);
+      const int e1 = ro(tl.jrow_adr[r + 1]);
+      for (int e = ro(tl.jrow_adr[r]); e < e1; ++e) {
+        const int i = ro(tl.jrow_col[e]);
+        const T ej = ELLIPTIC ? Jd[i] : Jn[i] + cd * Jd[i];
+        S.J[r][i] = ej * active;
+        vel = vel + ej * S.qv[i];
+      }
+      T ar = ref_acc(R.con_solref[slot], R.con_solimp[slot], timestep, imp, posr, vel);
       S.D[r] = active / Rr;
       S.aref[r] = ar * active;
     } else {
@@ -697,7 +817,8 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
   // ---- Newton solve: qacc_smooth -> qacc ----
   if constexpr (NEFC > 0)
     newton_solve_team<EnginePolicy, T>(tm, S.J, S.D, S.aref, S.M, S.qacc, c.A, c.L, c.b, c.w,
-                                       c.y, c.force, c.quad_w, C.tolerance, R.efc_frictionloss);
+                                       c.y, c.force, c.quad_w, C.tolerance, R.efc_frictionloss,
+                                       R.efc_eta, &c.con_jac[0][0][0], c.y);
 
   // ---- outputs that belong to the pre-step state ----
   if (out != nullptr) {
@@ -737,8 +858,25 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
 
   // ---- integrate (semi-implicit Euler) ----
   const T h = timestep;
-  if constexpr (NEFC == 0) tm.sync();  // qacc was written by other lanes
-  for (int i = lane; i < NV; i += LANES) S.qv[i] = S.qv[i] + h * S.qacc[i];
+  if constexpr (EULERDAMP) {
+    // (M + h diag(damping)) qacc = qfrc_smooth + J' force (J' force in c.y
+    // from the solve), factored on M's schedule; M's own factor is not reused,
+    // its diagonal differs
+    for (int e = lane; e < MC_N_mf_ent; e += LANES) {
+      const int rc = ro(g_mfac.ent[e]), rr = rc >> 8, cl = rc & 255;
+      T a = ro(g_mfac.ent_inm[e]) ? S.M[NV - 1 - cl][NV - 1 - rr] : T(0);
+      if (rr == cl) a = a + h * R.dof_damping[NV - 1 - rr];
+      c.A[rr][cl] = a;
+    }
+    for (int i = lane; i < NV; i += LANES)
+      c.b[NV - 1 - i] = NEFC > 0 ? S.qfrc[i] + c.y[i] : S.qfrc[i];
+    tm.sync();
+    chol_solve_team<T, NV>(tm, g_mfac, c.A, c.L, c.b, c.w, c.y);
+    for (int i = lane; i < NV; i += LANES) S.qv[i] = S.qv[i] + h * c.y[NV - 1 - i];
+  } else {
+    if constexpr (NEFC == 0) tm.sync();  // qacc was written by other lanes
+    for (int i = lane; i < NV; i += LANES) S.qv[i] = S.qv[i] + h * S.qacc[i];
+  }
   tm.sync();
   for (int j = lane; j < NJNT; j += LANES) {
     const int qadr = tp.jnt_qposadr[j], dadr = tp.jnt_dofadr[j];

@@ -23,19 +23,29 @@ constexpr int NFRIC = MC_NFRIC, NLIMIT = MC_NLIMIT, NEFC = MC_NEFC, NLEVEL = MC_
 constexpr int PAIR_KINDS = MC_PAIR_KINDS;
 constexpr bool HAS_SLIDE = MC_HAS_SLIDE != 0;
 constexpr int ITERATIONS = MC_ITERATIONS, LS_ITERATIONS = MC_LS_ITERATIONS;
+// Contacts beyond condim-3 pyramids: elliptic cones (a group of condim rows a
+// slot), the slots of condim 6 (torsional and rolling rows from rotational
+// Jacobians, which only those slots carry), and whether the contact rows
+// follow the crow table (else four facets a slot, from the row number).
+constexpr bool ELLIPTIC = MC_ELLIPTIC != 0, CON_TABLE = MC_CON_TABLE != 0;
+constexpr int NCON6 = MC_NCON6, NGROUPS = MC_NGROUPS;
+// implicit joint damping: (M + h diag(damping)) qacc = qfrc_smooth + J' force
+constexpr bool EULERDAMP = MC_EULERDAMP != 0;
 // arrays of a size that may be zero get one unused element
 constexpr int at_least_1(int n) { return n > 0 ? n : 1; }
 constexpr int NSITE1 = at_least_1(NSITE), NCON1 = at_least_1(NCON);
 constexpr int NPAIR1 = at_least_1(NPAIR), NCGEOM1 = at_least_1(NCGEOM);
 constexpr int NLIMIT1 = at_least_1(NLIMIT), NEFC1 = at_least_1(NEFC), NU1 = at_least_1(NU);
-constexpr int NFRIC1 = at_least_1(NFRIC);
+constexpr int NFRIC1 = at_least_1(NFRIC), NCROW1 = at_least_1(NEFC - NFRIC - NLIMIT);
+constexpr int NGROUPS1 = at_least_1(NGROUPS);
 
 // output rows, in the order the wrapper splits them
 constexpr int O_QPOS = 0;
 constexpr int O_QVEL = O_QPOS + NQ;
 constexpr int O_SITE_XPOS = O_QVEL + NV;
-constexpr int O_SITE_XMAT = O_SITE_XPOS + 3 * NSITE1;
-constexpr int O_XPOS = O_SITE_XMAT + 9 * NSITE1;
+// a model without sites still has one row of each (engine_cuda.out_specs)
+constexpr int O_SITE_XMAT = O_SITE_XPOS + (NSITE > 0 ? 3 * NSITE : 1);
+constexpr int O_XPOS = O_SITE_XMAT + (NSITE > 0 ? 9 * NSITE : 1);
 constexpr int O_XROT = O_XPOS + 3 * (NBODY - 1);
 constexpr int O_XDVEL = O_XROT + 4 * (NBODY - 1);
 constexpr int O_XDANG = O_XDVEL + 3 * (NBODY - 1);
@@ -63,6 +73,10 @@ struct ModelTopo {
   int fric_dof[mc::NFRIC1], limit_jnt[mc::NLIMIT1];
   int act_qposadr[mc::NU1], act_affine[mc::NU1];
   int act_ctrllimited[mc::NU1], act_forcelimited[mc::NU1];
+  // contact rows (with CON_TABLE): slot << 4 | direction << 1 | reversed;
+  // directions 0 normal, 1-2 tangents, 3-5 rotations (engine_cuda.contact_rows)
+  int crow[mc::NCROW1];
+  int con_rot[mc::NCON1];  // a condim-6 slot's rotational Jacobian block, else -1
 };
 
 // The lists a team's lanes walk (engine_cuda.team_tables). A list xs with
@@ -106,6 +120,8 @@ struct TeamTables {
   unsigned short cpair[mc::at_least_1(MC_N_cpair)];
   MC_LIST(hrow_adr);  // rows that reach both dofs of each Hessian factor entry
   MC_LIST(hrow);
+  MC_LIST(hgrp_adr);  // elliptic groups whose rank-1 term reaches each entry
+  MC_LIST(hgrp);
 };
 #undef MC_LIST
 
@@ -129,13 +145,14 @@ struct ModelReal {
   T act_ctrlrange[mc::NU1][2], act_forcerange[mc::NU1][2];
   T con_friction[mc::NCON1][5], con_solref[mc::NCON1][2], con_solimp[mc::NCON1][5];
   T con_includemargin[mc::NCON1];
+  T efc_eta[mc::NEFC1];  // each elliptic friction row's coefficient, 0 elsewhere
 };
 
 // What every lane reads at the same time.
 template <typename T>
 struct ModelScalars {
   T gravity[3];
-  T timestep, tolerance;
+  T timestep, tolerance, impratio;
 };
 
 __device__ const ModelTopo g_topo = {
@@ -146,13 +163,13 @@ __device__ const ModelTopo g_topo = {
     MCI_pair_g1, MCI_pair_g2, MCI_pair_conadr, MCI_pair_kind, MCI_con_body1, MCI_con_body2,
     MCI_fric_dof, MCI_limit_jnt,
     MCI_act_qposadr, MCI_act_affine,
-    MCI_act_ctrllimited, MCI_act_forcelimited};
+    MCI_act_ctrllimited, MCI_act_forcelimited, MCI_crow, MCI_con_rot};
 
 __device__ const TeamTables g_lists = {
     MCI_level_adr, MCI_level_body, MCI_child_adr, MCI_child_body, MCI_dof_jnt,
     MCI_dact_adr, MCI_dact, MCI_ment, MCI_mrow_adr, MCI_mrow_col,
     MCI_jrow_adr, MCI_jrow_col, MCI_jcol_adr, MCI_jcol_row, MCI_cpair,
-    MCI_hrow_adr, MCI_hrow};
+    MCI_hrow_adr, MCI_hrow, MCI_hgrp_adr, MCI_hgrp};
 
 __device__ const MC_FACTOR(mf) g_mfac = {
     MCI_mf_ent, MCI_mf_ent_inm, MCI_mf_col_adr, MCI_mf_col,
@@ -170,8 +187,8 @@ __device__ const MC_FACTOR(hf) g_hfac = {
    MCI_cgeom_pos, MCI_cgeom_quat, MCI_cgeom_size, MCI_site_pos, MCI_site_quat,   \
    MCI_act_gear, MCI_act_gain, MCI_act_bias, MCI_act_ctrlrange,                  \
    MCI_act_forcerange, MCI_con_friction, MCI_con_solref, MCI_con_solimp,         \
-   MCI_con_includemargin}
-#define MODEL_SCALARS_INIT {MCI_gravity, MCI_timestep, MCI_tolerance}
+   MCI_con_includemargin, MCI_efc_eta}
+#define MODEL_SCALARS_INIT {MCI_gravity, MCI_timestep, MCI_tolerance, MCI_impratio}
 
 // the double literals of the header narrow to float here: the constants are
 // rounded once, at compile time, to the type the kernel computes in

@@ -13,7 +13,10 @@
 //                         0.5 D jar^2 where |D jar| <= fl, else
 //                         fl |jar| - 0.5 fl^2 / D;
 //   elliptic cone groups  (P::NGROUPS) of 2 to 6 rows, three zones
-//                         (group_terms below).
+//                         (group_terms below), each owned whole by one lane;
+//                         on lists a group's rows share its first row's
+//                         support, and P::hgrp_adr(), P::hgrp() name the
+//                         groups whose rank-1 term reaches each factor entry.
 //
 // A team is LANES lanes of one warp that work on one sample; they sync with
 // __syncwarp on the team's mask and reduce with __shfl_xor_sync, never with
@@ -28,6 +31,7 @@
 //     groups also P::group_row0(g), P::group_dim(g) (constexpr) and
 //     P::impratio<T>()
 //   P::CONSTRAINT_FORCE            also return qfrc = J' force at the result
+//     (qfrc in dof order, summed over the rows in order)
 //   P::DENSE   every row reaches every dof, M and the Hessian are full: rows,
 //     dofs and lower entries are compile-time ranges, the Hessian lives in
 //     the lanes' registers and its factor is dense (dense_chol_solve_team);
@@ -348,6 +352,13 @@ constexpr int dense_scratch_size() {
   return 2 * P::NV + P::NGROUPS * (1 + 6 + P::NV);
 }
 
+// the scratch ds of a list policy with elliptic groups: each group's k_mid and
+// v = J_g' g (NV, written on the group's support only)
+template <typename P>
+constexpr int list_scratch_size() {
+  return P::NGROUPS * (1 + P::NV);
+}
+
 template <typename P, typename T>
 __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P::NV], const T* D,
                                                   const T* aref, const T (*M)[P::NV], T* x_sh,
@@ -360,12 +371,12 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
   // dense: the lower entries of the Hessian this lane owns, and the groups
   constexpr int NTRI = NV * (NV + 1) / 2, EPL = (NTRI + LANES - 1) / LANES;
   constexpr int GPL = NG > 0 ? (NG + LANES - 1) / LANES : 1;
-  static_assert(NG == 0 || P::DENSE, "elliptic groups need a dense policy");
-  // dense scratch: col[2][NV], then each group's k_mid, g[6] and v = J_g' g (NV)
+  // dense scratch: col[2][NV], then each group's k_mid, g[6] and v = J_g' g (NV);
+  // list scratch: each group's k_mid, then its v
   T(*col)[NV] = reinterpret_cast<T(*)[NV]>(ds);
-  T* const gk = NG > 0 ? ds + 2 * NV : nullptr;
-  T* const gg = NG > 0 ? gk + NG : nullptr;
-  T* const gv = NG > 0 ? gg + 6 * NG : nullptr;
+  T* const gk = NG > 0 ? ds + (P::DENSE ? 2 * NV : 0) : nullptr;
+  T* const gg = NG > 0 && P::DENSE ? gk + NG : nullptr;
+  T* const gv = NG > 0 ? (P::DENSE ? gg + 6 * NG : gk + NG) : nullptr;
 
   // what this lane owns: dofs lane + k LANES, rows lane + k LANES
   T x[DPL], dx[DPL], Mdx[DPL], p[DPL], Mp[DPL];
@@ -435,8 +446,18 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
         const int r = grow0[s] + kk;
         T acc = T(0);
         if (kk < gdim[s]) {
+          if constexpr (P::DENSE) {
 #pragma unroll
-          for (int i = 0; i < NV; ++i) acc = acc + J[r][i] * x_sh[i];
+            for (int i = 0; i < NV; ++i) acc = acc + J[r][i] * x_sh[i];
+          } else {
+            const short* jrow_adr = P::jrow_adr();
+            const short* jrow_col = P::jrow_col();
+            const int e1 = ro(jrow_adr[r + 1]);
+            for (int e = ro(jrow_adr[r]); e < e1; ++e) {
+              const int i = ro(jrow_col[e]);
+              acc = acc + J[r][i] * x_sh[i];
+            }
+          }
           acc = acc - aref[r];
         }
         gjar[s][kk] = acc;
@@ -476,7 +497,21 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
               force[grow0[s] + kk] = f[kk];
               quad_w[grow0[s] + kk] = wq[kk];
             }
-            gg[6 * gi + kk] = g[kk];
+            if constexpr (P::DENSE) gg[6 * gi + kk] = g[kk];
+          }
+          if constexpr (!P::DENSE) {
+            // v = J_g' g on the group's support, by the group's lane
+            const short* jrow_adr = P::jrow_adr();
+            const short* jrow_col = P::jrow_col();
+            const int e1 = ro(jrow_adr[grow0[s] + 1]);
+            for (int e = ro(jrow_adr[grow0[s]]); e < e1; ++e) {
+              const int i = ro(jrow_col[e]);
+              T v = T(0);
+#pragma unroll
+              for (int kk = 0; kk < 6; ++kk)
+                if (kk < gdim[s]) v = v + J[grow0[s] + kk][i] * g[kk];
+              gv[NV * gi + i] = v;
+            }
           }
         }
     }
@@ -622,6 +657,15 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
           const int row = ro(hrow[q]);
           h = h + (quad_w[row] * J[row][i]) * J[row][j];
         }
+        if constexpr (NG > 0) {
+          const short* hgrp_adr = P::hgrp_adr();
+          const short* hgrp = P::hgrp();
+          const int g1 = ro(hgrp_adr[e + 1]);
+          for (int q = ro(hgrp_adr[e]); q < g1; ++q) {
+            const int g = ro(hgrp[q]);
+            h = h + gk[g] * gv[NV * g + i] * gv[NV * g + j];
+          }
+        }
         A[r][c] = h;
       }
       tm.sync();
@@ -654,6 +698,23 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
           }
         }
         jv[k] = acc;
+      }
+      if constexpr (NG > 0) {
+#pragma unroll
+        for (int s = 0; s < GPL; ++s)
+#pragma unroll
+          for (int kk = 0; kk < 6; ++kk) {
+            T acc = T(0);
+            if (kk < gdim[s]) {
+              const int r = grow0[s] + kk;
+              const int e1 = ro(jrow_adr[r + 1]);
+              for (int e = ro(jrow_adr[r]); e < e1; ++e) {
+                const int i = ro(jrow_col[e]);
+                acc = acc + J[r][i] * y[NV - 1 - i];
+              }
+            }
+            gjv[s][kk] = acc;
+          }
       }
     }
     T pmp = T(0), pmx = T(0);
@@ -772,8 +833,18 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
       const int i = tm.lane + k * LANES;
       if (i < NV) {
         T acc = T(0);
+        if constexpr (P::DENSE) {
 #pragma unroll 4
-        for (int r = 0; r < NEFC; ++r) acc = acc + J[r][i] * force[r];
+          for (int r = 0; r < NEFC; ++r) acc = acc + J[r][i] * force[r];
+        } else {
+          const short* jcol_adr = P::jcol_adr();
+          const short* jcol_row = P::jcol_row();
+          const int e1 = ro(jcol_adr[i + 1]);
+          for (int e = ro(jcol_adr[i]); e < e1; ++e) {
+            const int r = ro(jcol_row[e]);
+            acc = acc + J[r][i] * force[r];
+          }
+        }
         qfrc[i] = acc;
       }
     }

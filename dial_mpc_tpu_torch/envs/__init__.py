@@ -47,6 +47,7 @@ def get_environment(name: str, config=None, device="cuda", dtype=None, engine="f
 # import side registers the built-in env families
 from dial_mpc_tpu_torch.envs import unitree_go2_env as _go2  # noqa: E402,F401
 from dial_mpc_tpu_torch.envs import unitree_h1_env as _h1  # noqa: E402,F401
+from dial_mpc_tpu_torch.envs import manipulation as _manip  # noqa: E402,F401
 
 __all__ = [
     "register_env",

@@ -597,15 +597,22 @@ class UnitreeGo2CrateEnv(UnitreeGo2Env):
         obs = self._get_obs(pipeline_state, state.info)
 
         # ---- reward stack ----
-        # The reference also computes gait, velocity, height, energy, pitch,
-        # roll and contact-penalty terms, all weighted 0 in this task; they are
-        # left out here (they could change nothing but the spread of a NaN).
-        # The feet's heights and targets stay, as info.
+        # The gait, velocity, height, energy, pitch and roll terms are weighted
+        # 0 in this task. They are computed all the same, as the reference
+        # does: a velocity large enough overflows their squares where the
+        # weighted terms stay finite, and 0 x inf must make the reward NaN
+        # here as it does there (the planner then drops the rollout). The
+        # reference's contact penalty, a count also weighted 0, is always
+        # finite and is left out.
         z_feet = pipeline_state.site_xpos[:, self._feet_site_id, 2]
         duty_ratio, cadence, amplitude = GAIT_PARAMS[self._gait]
         z_feet_tar = get_foot_step(
             duty_ratio, cadence, amplitude, self._gait_phases, stepf[:, 0] * self.dt
         )
+        reward_gaits = -(((z_feet_tar - z_feet) / 0.05) ** 2).sum(-1)
+        reward_vel = -((pipeline_state.xd_vel[:, torso] - state.info["vel_tar"]) ** 2).sum(-1)
+        reward_height = -((x_pos[:, torso, 2] - state.info["pos_tar"][:, 2]) ** 2)
+        reward_energy = -(torch.clamp(ctrl * pipeline_state.qvel[:, 6 : 6 + self._nu] / 160.0, min=0.0) ** 2).sum(-1)
 
         pos_tar = state.info["pos_tar"] + state.info["vel_tar"] * self.dt * stepf
         head_pos = x_pos[:, torso] + maths.quat_to_mat(torso_rot) @ self._head_offset
@@ -616,6 +623,8 @@ class UnitreeGo2CrateEnv(UnitreeGo2Env):
 
         rpy = maths.quat_to_euler(torso_rot)
         reward_yaw = -torch.square(rpy[:, 2] - state.info["yaw_tar"])  # not wrapped
+        reward_pitch = -torch.square(rpy[:, 1] - (-0.7854))
+        reward_roll = -torch.square(rpy[:, 0])
 
         # feet on the crate's top: the contact point (the pair's midpoint)
         # inside a thin box around the top face
@@ -627,7 +636,18 @@ class UnitreeGo2CrateEnv(UnitreeGo2Env):
         )
         reward_contact = on_top.sum(-1).to(self.dtype)
 
-        reward = reward_pos * 1.0 + reward_upright * 0.01 + reward_yaw * 0.3 + reward_contact * 0.02
+        reward = (
+            reward_gaits * 0.0
+            + reward_pos * 1.0
+            + reward_upright * 0.01
+            + reward_yaw * 0.3
+            + reward_vel * 0.0
+            + reward_height * 0.0
+            + reward_energy * 0.0
+            + reward_pitch * 0.0
+            + reward_roll * 0.0
+            + reward_contact * 0.02
+        )
 
         info = dict(state.info)
         info["step"] = state.info["step"] + 1

@@ -182,9 +182,12 @@ class UnitreeH1WalkEnv(BaseEnv):
         )
 
         # ---- reward stack ----
-        # The reference also computes an air-time bonus, a position term and an
-        # alive term, all weighted 0 in every H1 task; they are left out here
-        # (they could change nothing but the spread of a NaN).
+        # The air-time bonus, the position term and the alive term are
+        # weighted 0 in every H1 task. They are computed all the same, as the
+        # reference does: a position far out enough overflows the position
+        # term's square where the weighted terms stay finite, and 0 x inf must
+        # make the reward NaN here as it does there (the planner then drops
+        # the rollout).
         # gait tracking on the foot capsules' contact distances
         duty_ratio, cadence, amplitude = self.gait_params[self._gait]
         z_feet_tar = get_foot_step(
@@ -196,7 +199,12 @@ class UnitreeH1WalkEnv(BaseEnv):
         # contact bookkeeping on the foot sites
         contact = pipeline_state.site_xpos[:, self._feet_site_id, 2] < 1e-3
         contact_filt_mm = contact | state.info["last_contact"]
+        first_contact = (state.info["feet_air_time"] > 0) & contact_filt_mm
         feet_air_time = state.info["feet_air_time"] + self.dt
+        reward_air_time = ((feet_air_time - 0.1) * first_contact).sum(-1)
+        pos_tar = state.info["pos_tar"] + info["vel_tar"] * self.dt * stepf
+        reward_pos = -((x_pos[:, torso] - pos_tar) ** 2).sum(-1)
+        reward_alive = 1.0 - state.done
 
         vec = maths.rotate(self._up, x_rot[:, 0])
         reward_upright = -((vec - self._up) ** 2).sum(-1)
@@ -226,7 +234,7 @@ class UnitreeH1WalkEnv(BaseEnv):
             reward_height=reward_height,
             reward_energy=reward_energy,
             **extra,
-        )
+        ) + (reward_air_time * 0.0 + reward_pos * 0.0 + reward_alive * 0.0)
 
         # termination
         joint_angles = pipeline_state.qpos[:, 7 : 7 + self.joint_range.shape[0]]

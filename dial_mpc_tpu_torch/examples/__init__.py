@@ -12,4 +12,5 @@ examples = [
     "unitree_h1_jog",
     "unitree_h1_loco",
     "unitree_h1_push_crate",
+    "allegro_reorient",
 ]

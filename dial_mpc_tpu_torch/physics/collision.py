@@ -5,15 +5,16 @@ filters, see model.py:_candidate_pairs); at runtime every candidate pair is
 evaluated unconditionally into its fixed contact slots. Separated pairs keep
 their positive distance and are masked downstream. No dynamic shapes.
 
-Implemented pair types: plane-{sphere,capsule,box}, sphere-box,
-capsule-box and box-box, the pairs of the legged scenes (Go2 flat and crate,
-H1 walk, loco and push crate). Capsule-box and box-box are the reference's
-approximate manifolds (end spheres; the deepest corners of both boxes), not
-MuJoCo's, and this module matches them slot for slot, ties included: where
-the reference ranks candidates with ``jax.lax.top_k`` (the lower index first
-among equals), a stable sort ranks them here. The other pair types of the
-model suite (sphere-sphere, sphere-capsule, capsule-capsule: the Allegro
-hand) raise NotImplementedError naming the pair.
+Implemented pair types, all that appear in the model suite:
+plane-{sphere,capsule,box}, sphere-{sphere,capsule,box}, capsule-{capsule,box}
+and box-box. Capsule-box and box-box are the reference's approximate
+manifolds (end spheres; the deepest corners of both boxes), not MuJoCo's, and
+this module matches them slot for slot, ties included: where the reference
+ranks candidates with ``jax.lax.top_k`` (the lower index first among equals),
+a stable sort ranks them here. Capsule-capsule is the reference's clamped
+segment-segment solve, with its branch for parallel axes (s = 0 where
+1 - (a1.a2)^2 <= 1e-12). Any other pair type raises NotImplementedError
+naming the pair.
 """
 
 from __future__ import annotations
@@ -65,6 +66,49 @@ def _plane_sphere(pp, pn, c, r):
     dist = (pn * (c - pp)).sum(-1) - r
     pos = c - pn * (r + 0.5 * dist)[..., None]
     return dist[:, None], pos[:, None], make_frame(pn)[:, None]
+
+
+def _sphere_sphere(c1, r1, c2, r2):
+    """Sphere (c1, r1) vs sphere (c2, r2); the normal points from 1 to 2.
+
+    (B, 3) inputs -> dist (B, 1), pos (B, 1, 3), frame (B, 1, 3, 3).
+    """
+    dvec = c2 - c1
+    dist_c = torch.linalg.vector_norm(dvec, dim=-1)
+    n = dvec / dist_c.clamp_min(1e-15)[..., None]
+    dist = dist_c - (r1 + r2)
+    pos = c1 + n * (r1 + 0.5 * dist)[..., None]
+    return dist[:, None], pos[:, None], make_frame(n)[:, None]
+
+
+def _closest_on_segment(p, c, axis, hl):
+    """Closest point to p on the segment c + axis * t, |t| <= hl."""
+    t = ((p - c) * axis).sum(-1, keepdim=True).clamp(-hl, hl)
+    return c + axis * t
+
+
+def _sphere_capsule(c1, r1, c2, axis2, r2, hl2):
+    return _sphere_sphere(c1, r1, _closest_on_segment(c1, c2, axis2, hl2), r2)
+
+
+def _segment_segment(c1, a1, hl1, c2, a2, hl2):
+    """Closest points between two segments (unit axes a1, a2; the clamped
+    solve). Parallel axes (denom <= 1e-12) start from s = 0."""
+    r = c1 - c2
+    b = (a1 * a2).sum(-1, keepdim=True)
+    d = (a1 * r).sum(-1, keepdim=True)
+    e = (a2 * r).sum(-1, keepdim=True)
+    denom = 1.0 - b * b
+    s = torch.where(denom > 1e-12, (b * e - d) / denom.clamp_min(1e-12), torch.zeros_like(denom))
+    s = s.clamp(-hl1, hl1)
+    t = (b * s + e).clamp(-hl2, hl2)
+    s = (b * t - d).clamp(-hl1, hl1)
+    return c1 + a1 * s, c2 + a2 * t
+
+
+def _capsule_capsule(c1, a1, r1, hl1, c2, a2, r2, hl2):
+    p1, p2 = _segment_segment(c1, a1, hl1, c2, a2, hl2)
+    return _sphere_sphere(p1, r1, p2, r2)
 
 
 def _plane_capsule(pp, pn, c, axis, r, hl):
@@ -206,8 +250,14 @@ def collide(m: Model, d: Data) -> Data:
             out = _plane_capsule(p1, M1[..., 2], p2, M2[..., 2], s2[0], s2[1])
         elif key == (PLANE, BOX):
             out = _plane_box(p1, M1[..., 2], p2, M2, s2)
+        elif key == (SPHERE, SPHERE):
+            out = _sphere_sphere(p1, s1[0], p2, s2[0])
+        elif key == (SPHERE, CAPSULE):
+            out = _sphere_capsule(p1, s1[0], p2, M2[..., 2], s2[0], s2[1])
         elif key == (SPHERE, BOX):
             out = _sphere_box(p1, s1[0], p2, M2, s2)
+        elif key == (CAPSULE, CAPSULE):
+            out = _capsule_capsule(p1, M1[..., 2], s1[0], s1[1], p2, M2[..., 2], s2[0], s2[1])
         elif key == (CAPSULE, BOX):
             out = _capsule_box(p1, M1[..., 2], s1[0], s1[1], p2, M2, s2)
         elif key == (BOX, BOX):

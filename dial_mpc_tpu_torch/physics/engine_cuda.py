@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dial_mpc_tpu_torch.physics import cuda_build
+from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.forward import step as physics_step
 from dial_mpc_tpu_torch.physics.model import (
     BOX,
@@ -53,6 +54,9 @@ PAIR_KINDS = {
     (SPHERE, BOX): 3,
     (CAPSULE, BOX): 4,
     (BOX, BOX): 5,
+    (SPHERE, SPHERE): 6,
+    (SPHERE, CAPSULE): 7,
+    (CAPSULE, CAPSULE): 8,
 }
 
 _CSRC = cuda_build.CSRC
@@ -92,15 +96,12 @@ def check_supported(m: Model) -> None:
     """Raise NotImplementedError for a model the CUDA kernel does not cover.
 
     Covered: free, hinge and slide joints; the pairs of ``PAIR_KINDS`` at
-    condim 3 with pyramidal cones; friction-loss dofs; joint limits; the
-    Euler integrator with eulerdamp disabled.
+    condim 3 or 6, with pyramidal or elliptic cones; friction-loss dofs; joint
+    limits; the Euler integrator, with or without implicit joint damping
+    (eulerdamp). Ball joints, the other integrators and the contact-disable
+    flag are refused (the reference has no ball joints or other integrators
+    either), and so are condim 1 and 4, which no scene of the model suite has.
     """
-    if m.opt.cone == 1:
-        raise NotImplementedError("CUDA step kernel: elliptic friction cones are not ported yet")
-    if not m.opt.disable_eulerdamp:
-        raise NotImplementedError(
-            "CUDA step kernel: implicit joint damping (eulerdamp) is not ported yet"
-        )
     if m.opt.integrator != 0:
         raise NotImplementedError("CUDA step kernel: only the Euler integrator is ported")
     if m.ncon and m.opt.disable_contact:
@@ -114,7 +115,7 @@ def check_supported(m: Model) -> None:
             raise NotImplementedError(
                 f"CUDA step kernel: collision pair of geom types {(t1, t2)} is not ported yet"
             )
-        if condim != 3:
+        if condim not in (3, 6):
             raise NotImplementedError(
                 f"CUDA step kernel: contact dimension {condim} is not ported yet"
             )
@@ -125,7 +126,7 @@ def model_key(m: Model) -> tuple:
     return (
         m.pair_table, m.nq, m.nv, m.nu, m.jnt_type, m.opt.cone, m.opt.iterations,
         m.opt.ls_iterations, m.opt.disableflags, float(m.opt.timestep),
-        m.dof_frictionloss_static,
+        m.dof_frictionloss_static, float(m.opt.impratio),
     )
 
 
@@ -151,6 +152,22 @@ def _fill_closed_pattern(mask: np.ndarray) -> np.ndarray:
     return pat
 
 
+def contact_rows(m: Model) -> list:
+    """(slot, direction, reversed) of each contact row, in the plain version's
+    order. Directions: 0 the normal, 1-2 the tangents, 3-5 the rotations
+    about the frame's axes (condim 6). Elliptic cones give a slot of condim c
+    c rows, the normal first; pyramidal cones give two facets n +/- mu_k d_k a
+    direction (the + facet first): 4 rows at condim 3, 10 at condim 6."""
+    rows = []
+    for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
+        for slot in range(conadr, conadr + conmax):
+            if m.opt.cone == 1:
+                rows += [(slot, k, 0) for k in range(condim)]
+            else:
+                rows += [(slot, k, neg) for k in range(1, condim) for neg in (0, 1)]
+    return rows
+
+
 def static_layout(m: Model) -> dict:
     """Index tables and sparsity patterns of the kernel, as numpy arrays."""
     nv = m.nv
@@ -166,10 +183,14 @@ def static_layout(m: Model) -> dict:
         ]
     cgeoms = sorted({g for p in m.pair_table for g in p[:2]})
     cg_index = {g: k for k, g in enumerate(cgeoms)}
-    con_body1, con_body2 = [], []  # per contact slot
+    con_body1, con_body2, con_rot = [], [], []  # per contact slot
     for (g1, g2, t1, t2, condim, conadr, conmax) in m.pair_table:
         con_body1 += [m.geom_bodyid_static[g1]] * conmax
         con_body2 += [m.geom_bodyid_static[g2]] * conmax
+        # the rotational Jacobians of the condim-6 slots, numbered in slot order
+        for _ in range(conmax):
+            con_rot.append(sum(r >= 0 for r in con_rot) if condim == 6 else -1)
+    crows = contact_rows(m)
 
     # rows in the plain version's order: friction loss, limits, contacts
     sup = []
@@ -181,9 +202,8 @@ def static_layout(m: Model) -> dict:
         row = np.zeros(nv, dtype=bool)
         row[m.jnt_dofadr[j]] = True
         sup.append(row)
-    for b1, b2 in zip(con_body1, con_body2):
-        for _facet in range(4):
-            sup.append(chain[b1] | chain[b2])
+    for slot, _, _ in crows:  # all rows of a slot share its support
+        sup.append(chain[con_body1[slot]] | chain[con_body2[slot]])
     j_sup = np.array(sup, dtype=bool).reshape(len(sup), nv)
     h_mask = m_mask.copy()
     for row in j_sup:
@@ -199,6 +219,10 @@ def static_layout(m: Model) -> dict:
         pair_kind=np.array([PAIR_KINDS[p[2:4]] for p in m.pair_table], dtype=np.int64),
         con_body1=np.array(con_body1, dtype=np.int64),
         con_body2=np.array(con_body2, dtype=np.int64),
+        con_rot=np.array(con_rot, dtype=np.int64),
+        # contact rows packed slot << 4 | direction << 1 | reversed
+        crow=np.array([(sl << 4) | (k << 1) | neg for sl, k, neg in crows], dtype=np.int64),
+        groups=elliptic_groups(m),
         chain_mask=chain, m_mask=m_mask, h_mask=h_mask,
         m_pat=_fill_closed_pattern(m_mask), h_pat=_fill_closed_pattern(h_mask),
         j_sup=j_sup,
@@ -291,11 +315,18 @@ def team_tables(m: Model) -> tuple:
     order = sorted(range(len(hrows)), key=lambda e: -len(hrows[e]))
     hf["ent"], hf["ent_inm"] = hf["ent"][order], hf["ent_inm"][order]
     hrow_adr, hrow = _csr([hrows[e] for e in order])
+    # the elliptic groups whose rank-1 Hessian term reaches each entry (a
+    # group's rows share one support: its first row's)
+    hgrp_adr, hgrp = _csr([
+        [g for g, (row0, _) in enumerate(lay["groups"]) if any(row0 == r for r in hrows[e])]
+        for e in order
+    ])
     out = dict(
         level_adr=level_adr, level_body=level_body, child_adr=child_adr, child_body=child_body,
         dof_jnt=dof_jnt, dact_adr=dact_adr, dact=dact, ment=ment, mrow_adr=mrow_adr,
         mrow_col=mrow_col, jrow_adr=jrow_adr, jrow_col=jrow_col, jcol_adr=jcol_adr,
         jcol_row=jcol_row, cpair=cpair, hrow_adr=hrow_adr, hrow=hrow,
+        hgrp_adr=hgrp_adr, hgrp=hgrp,
     )
     out.update({f"mf_{k}": v for k, v in mf.items()})
     out.update({f"hf_{k}": v for k, v in hf.items()})
@@ -332,8 +363,19 @@ def render_constants_header(m: Model) -> str:
         sub_mass[m.body_parentid[b]] += sub_mass[b]
 
     nfric = len(lay["fric_dof"])
-    nefc = nfric + len(lay["limit_jnt"]) + 4 * m.ncon
+    nefc = nfric + len(lay["limit_jnt"]) + len(lay["crow"])
     assert lay["j_sup"].shape[0] == nefc
+    groups = lay["groups"]
+    ncon6 = int((lay["con_rot"] >= 0).sum())
+    # the contact rows follow a table unless every slot is a condim-3 pyramid
+    # (four facets a slot, computed from the row number)
+    con_table = int(m.opt.cone == 1 or ncon6 > 0)
+    efc_eta = np.zeros(nefc)
+    if m.opt.cone == 1:
+        fri = r(m.con_friction)
+        for k, v in enumerate(lay["crow"].tolist()):
+            if (v >> 1) & 7:
+                efc_eta[nefc - len(lay["crow"]) + k] = fri[v >> 4][((v >> 1) & 7) - 1]
     kinds = sorted(set(lay["pair_kind"].tolist()))
     sizes = dict(
         NQ=m.nq, NV=m.nv, NU=m.nu, NBODY=m.nbody, NJNT=m.njnt, NSITE=m.nsite,
@@ -342,6 +384,8 @@ def render_constants_header(m: Model) -> str:
         ITERATIONS=m.opt.iterations, LS_ITERATIONS=m.opt.ls_iterations,
         # bit k set: some pair is of kind k; whether any joint slides
         PAIR_KINDS=sum(1 << k for k in kinds), HAS_SLIDE=int(SLIDE in m.jnt_type),
+        ELLIPTIC=int(m.opt.cone == 1), NCON6=ncon6, CON_TABLE=con_table, NGROUPS=len(groups),
+        EULERDAMP=int(not m.opt.disable_eulerdamp),
     )
     ints = dict(
         body_parentid=m.body_parentid, body_rootid=m.body_rootid,
@@ -359,6 +403,8 @@ def render_constants_header(m: Model) -> str:
         act_affine=[int(bt == 1) for bt in m.actuator_biastype],
         act_ctrllimited=(r(m.actuator_ctrllimited) > 0).astype(np.int64),
         act_forcelimited=(r(m.actuator_forcelimited) > 0).astype(np.int64),
+        crow=lay["crow"], con_rot=lay["con_rot"],
+        group_row0=[g[0] for g in groups], group_dim=[g[1] for g in groups],
     )
     tables, team_sizes = team_tables(m)
     sizes.update(team_sizes)
@@ -386,6 +432,8 @@ def render_constants_header(m: Model) -> str:
         con_solimp=r(m.con_solimp), con_includemargin=r(m.con_includemargin),
         gravity=r(m.opt.gravity), timestep=r(m.opt.timestep),
         tolerance=np.float64(m.opt.tolerance),
+        efc_eta=efc_eta,  # each elliptic friction row's coefficient, 0 elsewhere
+        impratio=r(m.opt.impratio),
     )
     lines = [
         "// Generated from the loaded model by engine_cuda.render_constants_header.",
@@ -454,6 +502,9 @@ def step_flops(m: Model) -> int:
     sb_rest = 4 + 6  # the normal and the contact point
     sphere_box = sb_dist + sb_rest + frame
     corner = 18 + 3
+    sphere_sphere = 3 + dot3 + 1 + 3 + 2 + 8  # the normal, the distance, the point
+    seg = 3 + dot3 + 1 + 6  # the closest point of a segment to a point
+    seg_seg = 3 + 3 * dot3 + 2 + 4 + 6 + 2 + 2 + 12  # the clamped solve, both points
     per_kind = {  # kind: (first geom's frame, second geom's frame, the pair)
         0: (col, 0, dot3 + 10 + frame),
         1: (col, col, 2 * (6 + dot3 + 10) + dot3 + 6 + 10 + cross),
@@ -462,15 +513,26 @@ def step_flops(m: Model) -> int:
         4: (col, full, 2 * (6 + sphere_box)),
         # 16 candidate distances, then point and frame of the deepest 8
         5: (full, full, 16 * (corner + sb_dist) + 8 * (sb_rest + frame)),
+        6: (0, 0, sphere_sphere + frame),
+        7: (0, col, seg + sphere_sphere + frame),
+        8: (col, col, seg_seg + sphere_sphere + frame),
     }
     f += len(m.pair_table) * 2 * (qrot + 3)
     f += sum(sum(per_kind[k]) for k in lay["pair_kind"].tolist())
     kbi = 40
     f += len(lay["fric_dof"]) * (kbi + 6)
     f += len(lay["limit_jnt"]) * (kbi + 10)
-    sup_c = int(lay["j_sup"][len(lay["fric_dof"]) + len(lay["limit_jnt"]):].sum())
-    f += m.ncon * (kbi + 12) + (sup_c // 4) * (2 * (cross + 3) + 3 + 3 * dot3) + sup_c * 5
-    f += 4 * m.ncon * (kbi + 4)
+    # contact Jacobians: the translational difference along the frame on each
+    # slot's support, and the rotational one at condim-6 slots
+    r1 = len(lay["fric_dof"]) + len(lay["limit_jnt"])
+    slot_sup = {}
+    for (slot, _, _), row in zip(contact_rows(m), lay["j_sup"][r1:]):
+        slot_sup[slot] = int(row.sum())
+    f += sum(n * (2 * (cross + 3) + 3 + 3 * dot3) for n in slot_sup.values())
+    f += sum(n * (3 + 3 * dot3) for s_, n in slot_sup.items() if lay["con_rot"][s_] >= 0)
+    # each contact row: impedance, R, its entries and velocity, aref
+    sup_c = int(lay["j_sup"][r1:].sum())
+    f += m.ncon * (kbi + 12) + sup_c * 5 + len(lay["crow"]) * (kbi + 4)
     # Newton solve
     nsup = int(lay["j_sup"].sum())
     pair_ops = sum(int(r.sum()) * (int(r.sum()) + 1) // 2 for r in lay["j_sup"])
@@ -481,7 +543,18 @@ def step_flops(m: Model) -> int:
         + 2 * nsup + 2 * m_nnz + 4 * nv + max(m.opt.ls_iterations, 1) * per_ls
         + 2 * nefc + 4 * nefc + 6 * nv + 6 * nv + 2 * nefc
     )
+    # elliptic groups: the three-zone terms at each cost and line-search
+    # update, v = J_g' g and its rank-1 term on the Hessian entries it reaches
+    groups = lay["groups"]
+    if groups:
+        gterms = sum(14 * dim + 20 for _, dim in groups)
+        gsup = {row0: int(lay["j_sup"][row0].sum()) for row0, _ in groups}
+        g_hess = sum(2 * dim * gsup[row0] + 3 * gsup[row0] * (gsup[row0] + 1) // 2 for row0, dim in groups)
+        per_iter += 2 * gterms + g_hess + max(m.opt.ls_iterations, 1) * (gterms + 3 * sum(d for _, d in groups))
     f += 2 * nsup + nefc + m.opt.iterations * per_iter
+    if not m.opt.disable_eulerdamp:
+        # J' force, and (M + h diag(damping)) qacc = qfrc solved on M's pattern
+        f += 2 * nsup + 2 * nv + chol(lay["m_pat"])
     # integration and views
     f += 2 * nv + 2 * m.nq + n_free * (qmul + 30) + (nb - 1) * (3 + cross + 3)
     f += m.nsite * (qrot + 3 + qmul + q2m)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from dial_mpc_tpu_torch.physics import collision, constraint, kinematics, maths, smooth, solver
+from dial_mpc_tpu_torch.physics import collision, constraint, kinematics, linalg, maths, smooth, solver
 from dial_mpc_tpu_torch.physics.model import Data, Model
 
 FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
@@ -60,11 +60,13 @@ def _integrate_qpos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> tor
 
 
 def _euler_damp_qacc(m: Model, d: Data) -> torch.Tensor:
-    """Implicit joint damping: solve (M + h*diag(B)) x = qfrc_total."""
-    raise NotImplementedError(
-        "implicit joint damping (eulerdamp) is not ported yet; the model must "
-        "set <flag eulerdamp=\"disable\"/>"
-    )
+    """Implicit joint damping: solve (M + h*diag(B)) x = qfrc_total.
+
+    mj_Euler's eulerdamp path (the Allegro model enables it; the Go2 and H1
+    scenes disable it with <flag eulerdamp="disable">).
+    """
+    MhB = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
+    return linalg.solve_pd(MhB, d.qfrc_smooth + d.qfrc_constraint)
 
 
 def step(m: Model, d: Data, solve=solver.solve) -> Data:

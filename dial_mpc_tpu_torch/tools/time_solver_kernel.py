@@ -13,10 +13,13 @@ that exports ``solver_sample_major`` takes the seven (B, ...) inputs and two
 (B, nv) outputs as they are, an older one one packed (rows, B) input and one
 (2 nv, B) output. Run it once per checkout inside one call, in turns
 (a, b, b, a), and compare only within that call. Prints one JSON line with the
-card's name and power limit.
+card's name and power limit and, for a sample-major library, a hash of each
+type's outputs at B = 2049 (two checkouts that compute the same bits print
+the same hash).
 """
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -87,6 +90,9 @@ def main():
             if not all(torch.isfinite(t).all() for t in outs):
                 sys.exit("non-finite output")
             out[name + ("_kernel_ms" if batch == B else "_B1_kernel_ms")] = times[1:]
+            if batch == B and sample_major:  # two checkouts that compute the same bits print the same hash
+                out[name + "_output_sha256"] = hashlib.sha256(
+                    b"".join(t.cpu().numpy().tobytes() for t in outs)).hexdigest()[:16]
         out["sample_major"] = sample_major
         out["lanes"] = getattr(lib, "lanes", 1)
     out["card"] = subprocess.run(

@@ -199,3 +199,76 @@ def test_box_box_matches_jax(kind):
     if kind == "stacked_flat":
         d = got[0].numpy()
         assert (np.diff(d, axis=1) == 0).any(), "the stacked case must hold equal depths"
+
+
+# ---------------------------------------------------------------------------
+# sphere and capsule pairs (the Allegro hand: ball on fingertips, fingertips
+# on each other)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["random", "coincident"])
+def test_sphere_sphere_matches_jax(kind):
+    """Random centres, and centres that coincide (the normal's 1e-15 guard)."""
+    rng = np.random.default_rng({"random": 20, "coincident": 21}[kind])
+    c1 = rng.normal(scale=0.05, size=(B, 3))
+    c2 = c1.copy() if kind == "coincident" else c1 + rng.normal(scale=0.05, size=(B, 3))
+    r1, r2 = 0.025, 0.012
+    got = tcol._sphere_sphere(*_t(c1), r1, *_t(c2), r2)
+    ref = jax.vmap(lambda a, b: jcol._sphere_sphere(a, r1, b, r2))(jnp.asarray(c1), jnp.asarray(c2))
+    _compare(got, ref, f"sphere-sphere {kind}")
+
+
+@pytest.mark.parametrize("kind", ["random", "beyond_ends", "on_axis"])
+def test_sphere_capsule_matches_jax(kind):
+    """Sphere centres anywhere, beyond either end of the capsule's segment
+    (the clamp), and on its axis line."""
+    rng = np.random.default_rng({"random": 22, "beyond_ends": 23, "on_axis": 24}[kind])
+    c2, axis = rng.normal(scale=0.05, size=(B, 3)), _unit(rng, B)
+    hl = 0.02
+    if kind == "random":
+        c1 = c2 + rng.normal(scale=0.04, size=(B, 3))
+    else:
+        t = rng.uniform(0.021, 0.06, (B, 1)) * np.where(rng.uniform(size=(B, 1)) < 0.5, 1.0, -1.0)
+        if kind == "on_axis":
+            t = rng.uniform(-0.019, 0.019, (B, 1))
+        side = 0.0 if kind == "on_axis" else rng.normal(scale=0.01, size=(B, 3))
+        c1 = c2 + axis * t + side
+    r1, r2 = 0.025, 0.012
+    got = tcol._sphere_capsule(*_t(c1), r1, *_t(c2, axis), r2, hl)
+    ref = jax.vmap(lambda a, b, x: jcol._sphere_capsule(a, r1, b, x, r2, hl))(
+        *[jnp.asarray(v) for v in (c1, c2, axis)]
+    )
+    _compare(got, ref, f"sphere-capsule {kind}")
+
+
+@pytest.mark.parametrize("kind", ["random", "crossing", "parallel", "near_parallel", "antiparallel"])
+def test_capsule_capsule_matches_jax(kind):
+    """Random pairs, crossing segments (both clamps inactive), and parallel
+    axes, exactly (1 - (a1.a2)^2 = 0, the branch that starts from s = 0),
+    within rounding of it, and reversed."""
+    rng = np.random.default_rng({"random": 25, "crossing": 26, "parallel": 27, "near_parallel": 28,
+                                 "antiparallel": 29}[kind])
+    c1, a1 = rng.normal(scale=0.03, size=(B, 3)), _unit(rng, B)
+    hl1, hl2, r1, r2 = 0.02, 0.015, 0.012, 0.01
+    if kind == "random":
+        a2, c2 = _unit(rng, B), c1 + rng.normal(scale=0.03, size=(B, 3))
+    elif kind == "crossing":
+        a2 = _unit(rng, B)
+        n = np.cross(a1, a2)
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        s, t = rng.uniform(-0.015, 0.015, (B, 1)), rng.uniform(-0.01, 0.01, (B, 1))
+        c2 = c1 + a1 * s - a2 * t + n * rng.uniform(-0.03, 0.03, (B, 1))
+    else:
+        a2 = a1 * (-1.0 if kind == "antiparallel" else 1.0)
+        if kind == "near_parallel":
+            a2 = a2 + 10.0 ** rng.uniform(-9, -6, (B, 1)) * _unit(rng, B)
+            a2 /= np.linalg.norm(a2, axis=1, keepdims=True)
+        c2 = c1 + a1 * rng.uniform(-0.05, 0.05, (B, 1)) + rng.normal(scale=0.02, size=(B, 3))
+    got = tcol._capsule_capsule(*_t(c1, a1), r1, hl1, *_t(c2, a2), r2, hl2)
+    ref = jax.vmap(lambda a, b, x, y: jcol._capsule_capsule(a, b, r1, hl1, x, y, r2, hl2))(
+        *[jnp.asarray(v) for v in (c1, a1, c2, a2)]
+    )
+    _compare(got, ref, f"capsule-capsule {kind}")
+    if kind in ("parallel", "antiparallel"):
+        b = np.abs((a1 * a2).sum(-1))
+        assert (1.0 - b * b <= 1e-12).all(), "the parallel branch must be taken"

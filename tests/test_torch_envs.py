@@ -40,7 +40,9 @@ INFO_KEYS = {
     "unitree_h1_loco": H1_INFO,
     "unitree_h1_push_crate": H1_INFO,
     "unitree_go2_crate_climb": ["step", "z_feet", "z_feet_tar", "pos_tar", "vel_tar", "yaw_tar"],
+    "allegro_reorient": ["ang_vel_tar", "pos_tar", "step"],
 }
+ALLEGRO = "allegro_reorient"
 
 
 def _config(example):
@@ -152,6 +154,7 @@ def _perturb_contacts(env, ps, rng):
 
 
 _REPLAYED = {}
+_REPLAY_INPUTS = {}
 
 
 def _replayed(example):
@@ -172,6 +175,7 @@ def _replayed(example):
     action = torch.tensor(rng.uniform(-1, 1, (n, nu)))
     nxt_ps = _perturb_contacts(env, env.step(st, action).pipeline_state, rng)
     nxt = env.step(st, action, nxt_ps)
+    _REPLAY_INPUTS[example] = (st, action, nxt_ps)
     step_j = jax.jit(jenv.step)
     outs = []
     f32 = jnp.float32
@@ -242,6 +246,36 @@ def test_state_from_numpy_takes_the_jax_state(task):
     assert back.info["last_contact"].dtype == torch.bool and back.info["last_contact"].shape == (1, feet)
 
 
+# Where the physics blows up, a reward term of weight 0 can overflow while the
+# weighted ones stay finite: 0 x inf then makes the reference's reward NaN, and
+# its planner drops the rollout. The port computes those terms too, so that its
+# reward is NaN on the same states (before it was finite there, and the
+# rollout kept a weight).
+@pytest.mark.parametrize("field", ["x_pos", "xd_vel", "qvel", "site_xpos", "x_rot", "xd_ang"])
+def test_reward_is_nan_where_the_references_is(task, field):
+    """The replayed step's next Data with one value of ``field`` set to
+    1e100, 1e155, 1e160, 1e200 (finite in float64) in samples 0-3: the port's
+    reward is NaN exactly where the reference's is (the reference casts its
+    reward to float32, so only NaN, not overflow, is compared)."""
+    example, env, jenv = task["example"], task["env"], task["jenv"]
+    _replayed(example)
+    st, action, nxt_ps = _REPLAY_INPUTS[example]
+    v = getattr(nxt_ps, field).clone()
+    for i, big in enumerate((1e100, 1e155, 1e160, 1e200)):
+        v[i].view(-1)[i % v[i].numel()] = big
+    ps = nxt_ps.replace(**{field: v})
+    got = env.step(st, action, ps).reward
+    step_j = jax.jit(jenv.step)
+    for i in range(4):
+        js = JaxState(
+            _jax_data(jenv.sys, st.pipeline_state, i), jnp.asarray(st.obs[i].numpy()),
+            jnp.asarray(st.reward[i].numpy(), jnp.float32), jnp.asarray(st.done[i].numpy(), jnp.float32), {},
+            _jax_info(st.info, i),
+        )
+        ref = float(step_j(js, jnp.asarray(action[i].numpy()), _jax_data(jenv.sys, ps, i)).reward)
+        assert np.isnan(ref) == bool(torch.isnan(got[i])), (field, i, ref, float(got[i]))
+
+
 # ---------------------------------------------------------------------------
 # golden trajectories
 # ---------------------------------------------------------------------------
@@ -280,6 +314,65 @@ def _golden_run(example):
 GOLDEN_Y_TOL = {"unitree_h1_loco": 1e-4, "unitree_go2_crate_climb": 1e-4}
 
 
+def _jax_float64_run(example):
+    """The goldens' run (tests/golden_utils.py, the same OVERRIDES and seed)
+    of the JAX planner with float64 physics: the models and data put in
+    float64, the spline maps in float64, and the envs' float32 pins (rewards,
+    info) taken as float64, for this call only."""
+    import functools
+
+    from dial_mpc_tpu.core import dial_core as jax_dial_core
+    from dial_mpc_tpu.physics import model as jax_model
+    from dial_mpc_tpu.utils.spline import FixedSpline as JaxFixedSpline
+    from tests.golden_utils import run_case
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_model, "put_model", functools.partial(jax_model.put_model, dtype=jnp.float64))
+        mp.setattr(jax_model, "make_data", functools.partial(jax_model.make_data, dtype=jnp.float64))
+        mp.setattr(jax_dial_core, "FixedSpline", functools.partial(JaxFixedSpline, dtype=jnp.float64))
+        mp.setattr(jnp, "float32", jnp.float64)
+        return run_case(example)
+
+
+_F64_RUNS = {}
+
+
+def _jax_float64_run_apart(example, tmp_dir):
+    """_jax_float64_run in a process of its own, on the CPU in float64 as the
+    goldens' run (tests/conftest.py) but without the persistent compilation
+    cache: XLA:CPU (jax 0.9.0) aborted reading back the entries this run
+    writes."""
+    import subprocess
+    import sys
+
+    if example not in _F64_RUNS:
+        out = os.path.join(tmp_dir, example + ".npz")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = ("import sys, numpy as np, jax; sys.path.insert(0, %r); "
+                "jax.config.update('jax_platforms', 'cpu'); jax.config.update('jax_enable_x64', True); "
+                "from tests.test_torch_envs import _jax_float64_run; "
+                "np.savez(%r, **_jax_float64_run(%r))" % (root, out, example))
+        env = {**os.environ, "JAX_PLATFORMS": "cpu", "DIAL_MPC_PALLAS": "0", "DIAL_MPC_ENGINE": "xla"}
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root, env=env)
+        assert r.returncode == 0, r.stderr[-4000:]
+        with np.load(out) as z:
+            _F64_RUNS[example] = {k: z[k] for k in z.files}
+    return _F64_RUNS[example]
+
+
+@pytest.mark.parametrize("what,tol", [("Y", 2e-5), ("reward", 5e-6), ("qpos", 2e-6)])
+@pytest.mark.parametrize("example", ["unitree_h1_loco", "unitree_go2_crate_climb"])
+def test_control_step_matches_float64_reference(example, what, tol, tmp_path_factory):
+    """The golden Y tolerance of H1 loco and the crate climb (GOLDEN_Y_TOL)
+    rests on an argument: the goldens' float32 rewards, amplified by the
+    softmax. Measured here: the JAX planner run with float64 physics, and the
+    port (float64) held to it at the trot golden's tolerances."""
+    ref = _jax_float64_run_apart(example, str(tmp_path_factory.getbasetemp()))[what]
+    got = _golden_run(example)[what]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=tol)
+
+
 @pytest.mark.parametrize("what", ["Y", "reward", "qpos"])
 @pytest.mark.parametrize("example", EXAMPLES)
 def test_control_step_reproduces_golden(example, what):
@@ -288,3 +381,82 @@ def test_control_step_reproduces_golden(example, what):
     tol = {"Y": GOLDEN_Y_TOL.get(example, 2e-5), "reward": 5e-6, "qpos": 2e-6}[what]
     assert got.shape == ref[what].shape
     np.testing.assert_allclose(got, ref[what], atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the Allegro in-hand reorientation task
+# ---------------------------------------------------------------------------
+
+def test_allegro_is_registered_position_only():
+    t = _task(ALLEGRO)
+    env, jenv = t["env"], t["jenv"]
+    assert type(env).__name__ == "AllegroReorientEnv" and env.action_size == 16
+    assert env._object_body_idx == 1 and env._n_frames == 4  # dt 0.02 over timestep 0.005
+    assert float(env.sys.opt.timestep) == 0.005 and not env.sys.opt.disable_eulerdamp
+    # targets are offsets from the keyframe pose, clipped to the joint range
+    act = np.random.default_rng(3).uniform(-1.5, 1.5, (5, 16))
+    np.testing.assert_allclose(
+        env.act2joint(torch.tensor(act)).numpy(),
+        np.stack([np.asarray(jenv.act2joint(jnp.asarray(a))) for a in act]), atol=1e-12,
+    )
+    cfg = dataclasses.replace(env._config, leg_control="torque")
+    torque_env = torch_envs.get_environment(ALLEGRO, cfg, device="cpu", dtype=F64)
+    st = torque_env.reset()
+    with pytest.raises(NotImplementedError, match="position control only"):
+        torque_env.step(st, torch.zeros(1, 16, dtype=F64))
+
+
+def test_allegro_done_is_one_value_a_sample_on_reset_and_step():
+    """The reference's note (manipulation.py): its upstream returned another
+    shape of done from step than from reset; here both give one a sample,
+    and it turns on after 100 steps."""
+    env = _task(ALLEGRO)["env"]
+    st = env.reset()
+    assert st.done.shape == (1,) and st.reward.shape == (1,)
+    st2 = expand_state(st, 2)
+    st2 = st2.replace(info={**st2.info, "step": torch.tensor([99, 100], dtype=torch.int32)})
+    nxt = env.step(st2, torch.zeros(2, 16, dtype=F64))
+    assert nxt.done.shape == (2,) and nxt.done.tolist() == [0.0, 1.0]
+    assert nxt.info["step"].tolist() == [100, 101]
+
+
+@pytest.mark.parametrize("what,tol", [("reward", 1e-5), ("done", 0.0), ("ctrl", 1e-9)])
+def test_allegro_step_matches_jax_on_replayed_data(what, tol):
+    """The reward (the ball's angular velocity in the reference's units, its
+    position, the fingers' pose) on the port's next Data replayed into the
+    JAX env; float32 there, so 1e-5."""
+    nxt, outs = _replayed(ALLEGRO)
+    for i, js in enumerate(outs):
+        got = {"reward": nxt.reward, "done": nxt.done, "ctrl": nxt.pipeline_state.ctrl}[what][i]
+        ref = {"reward": js.reward, "done": js.done, "ctrl": js.pipeline_state.ctrl}[what]
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, err_msg=f"sample {i}")
+    for key in INFO_KEYS[ALLEGRO]:
+        for i, js in enumerate(outs):
+            np.testing.assert_allclose(nxt.info[key][i].numpy().astype(np.float64),
+                                       np.asarray(js.info[key], np.float64), atol=1e-6)
+
+
+def test_allegro_golden_physics_steps():
+    """The Allegro golden (tests/golden/allegro_reorient.npz) over the control
+    steps whose executed control is the plan's pinned first node (zero, from
+    the zero start plan): the first two, whose reward and state follow from
+    the physics and the reward stack alone (trot golden tolerances: reward
+    5e-6, qpos 2e-6), and that node of the first plan. The rest of the plan Y
+    is not reproduced: from the first step it parts from the golden by up to
+    2 (actions saturate at +/-1), and so does the third step's state
+    (ROADMAP C5)."""
+    t = _task(ALLEGRO)
+    cfg, env = t["cfg"], t["env"]
+    pl = MBDPI(cfg, env)
+    shape = (cfg.Nsample, cfg.Hnode + 1, pl.nu)
+    draws = _jax_draws(cfg.seed, [(cfg.Ndiffuse_init, shape), (cfg.Ndiffuse, shape)])
+    ref = np.load(os.path.join(GOLDEN_DIR, ALLEGRO + ".npz"))
+    st = env.reset()
+    Y = torch.zeros(cfg.Hnode + 1, pl.nu, dtype=F64)
+    for k in range(2):
+        st, Y, _ = pl.control_step(st, Y, draws[k].shape[0], eps=torch.tensor(draws[k]))
+        if k == 0:
+            Y_first = Y
+        np.testing.assert_allclose(float(st.reward), ref["reward"][k], atol=5e-6, err_msg=f"step {k}")
+        np.testing.assert_allclose(st.pipeline_state.qpos[0].numpy(), ref["qpos"][k], atol=2e-6, err_msg=f"step {k}")
+    np.testing.assert_allclose(Y_first[0].numpy(), ref["Y"][0][0], atol=2e-5)

@@ -180,7 +180,11 @@ def test_registry():
     assert envs.get_env_class("unitree_h1_walk") is UnitreeH1WalkEnv
     assert envs.get_env_class("unitree_h1_loco") is UnitreeH1LocoEnv
     assert envs.get_env_class("unitree_h1_push_crate") is UnitreeH1PushCrateEnv
-    with pytest.raises(ValueError):  # the Allegro hand is not ported yet
-        envs.get_env_class("allegro_reorient")
+    from dial_mpc_tpu_torch.envs.manipulation import AllegroReorientEnv, AllegroReorientEnvConfig
+
+    assert envs.get_env_class("allegro_reorient") is AllegroReorientEnv
+    assert envs.get_config("allegro_reorient") is AllegroReorientEnvConfig
+    with pytest.raises(ValueError):  # every task of the JAX package is registered; an unknown name raises
+        envs.get_env_class("no_such_task")
     envs.register_env("alias_for_test", UnitreeGo2Env, UnitreeGo2EnvConfig)
     assert isinstance(envs.get_environment("alias_for_test", device="cpu"), UnitreeGo2Env)
