@@ -65,43 +65,27 @@ import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core import runner
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.physics import (
-    cuda_build, engine_cuda, forward, make_data, put_model, solver, solver_cuda,
+    cuda_build, engine_cuda, forward, make_data, maths, put_model, solver, solver_cuda,
 )
 from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
 from dial_mpc_tpu_torch.tools import solver_cases
 from dial_mpc_tpu_torch.tools.float_checks import (
-    FLOAT32_SENSITIVE_KEYS, MAX_FLIPPED, TOL_F32_DEFAULT, TOL_F64_DEFAULT, contact_rich_batch, departing,
-    tolerances,
+    MAX_FLIPPED, REFERENCE_DEPARTS, TOL_SYNTHETIC, contact_rich_batch, departing, listed_limits, solve_limits,
+    step_limits,
 )
 from dial_mpc_tpu_torch.tools.scene_cases import SCENES, TIMESTEP, box_slots
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path
 
 DEVICE = "cuda"
+QACC = engine_cuda.OUTPUT_NAMES.index("qacc")
 B_FULL = 2049  # Nsample + 1 rollouts of the shipped configs
 
 H100_FP32_FLOPS = 67e12  # dense float32 outside the tensor cores, published peak
 H100_HBM_BYTES_PER_S = 3.35e12
 
-# The step kernel's tolerances (float64, and float32 against float64) and
-# the float32 flip rule are in dial_mpc_tpu_torch/tools/float_checks.py,
-# which the CPU tests read too. The solver kernel, float64: the same arithmetic in another order (the
-# kernel carries jar and M dx from iteration to iteration, the plain version
-# recomputes them); E's own qacc tolerance.
-TOL_SOLVER_F64 = 1e-7
-# The solver kernel, float32 against the float64 plain version on the same
-# (float32-rounded) rows: x is qacc, so E's qacc tolerance and its reason hold
-# (accelerations of 1e3..1e4, rounding amplified by the Hessian's
-# conditioning); qfrc = J' f is held to the same absolute 0.5 (forces of the
-# same batch reach 1e2..1e3).
-TOL_SOLVER_F32 = 0.5
-# At the Allegro key x is its qacc (6e4 at the median sample), and the step
-# kernel's qacc tolerances there hold for the same reason (float_checks.py's
-# TOL_F64_BY_KEY, TOL_F32_BY_KEY).
-TOL_SOLVER_BY_KEY = {"allegro": {"f64": 1e-5, "f32": 16.0}}
-# The synthetic problem is O(1)..O(10) and well conditioned (M = A A' + 6 I):
-# errors relative to max(1, |reference|max).
-TOL_SYNTHETIC = {"float64": 1e-9, "float32": 1e-3}
+# Every tolerance the kernels are held to, and the float32 flip rule, are in
+# dial_mpc_tpu_torch/tools/float_checks.py, which the CPU tests read too.
 
 
 def emit(phase, **kw):
@@ -125,10 +109,10 @@ def beyond_limits(model, qpos):
     return ((q < jr[:, 0]) | (q > jr[:, 1])).any(-1)
 
 
-def worst_over_limit(specs, limits, outs, refs, i):
+def worst_over_limit(names, limits, default, outs, refs, i):
     """(output, error, limit) of sample i's output farthest over its limit."""
-    errs = [(float((a[i].double() - b[i].double()).abs().max()), limit, name)
-            for (name, _), limit, a, b in zip(specs, limits, outs, refs)]
+    errs = [(float((a[i].double() - b[i].double()).abs().max()), limits.get(name, default), name)
+            for name, a, b in zip(names, outs, refs)]
     err, limit, name = max(errs, key=lambda e: e[0] / e[1])
     return {"output": name, "err": err, "limit": limit}
 
@@ -148,46 +132,58 @@ def dump_failure(what, name, a, b, limit, inputs):
     return f"{len(bad)} samples, worst {[(i, float(err[i])) for i in worst[:6]]}"
 
 
-def compare(model, outs, refs, tol, tol_default, what, plain32=None, flips=None, inputs=None,
-            sensitive=False):
-    """Worst error of each output against refs; raises beyond the tolerance.
-    With plain32 (the float32 plain version's outputs), the samples where it
-    departs from refs beyond the tolerance are held to it instead; at a key
-    whose float32 step is ``sensitive`` (float_checks.FLOAT32_SENSITIVE_KEYS:
-    the reference's own float32 step departs too, through the solve's
-    conditioning) a sample where the kernel departs is held only to be
-    finite. At most MAX_FLIPPED samples may be either; flips[what]
-    lists each with the kernel's and the float32 plain version's worst error
-    against float64, so that a flipped branch (both depart alike) can be told
-    from a drift (tests/test_torch_physics.py checks on the CPU that the
-    reference's own float32 step departs at the samples listed)."""
-    specs = engine_cuda.out_specs(model)
-    limits = [tol.get(name, tol_default) for name, _ in specs]
-    worst = {}
+def hold_departures(names, outs, refs, limits, default, what, plain32, flips, listed):
+    """The float32 departures of one batch: a sample where the float32 plain
+    version (plain32) departs from refs beyond the limits is held to it
+    instead (a flipped branch); a sample of ``listed`` (float_checks.
+    REFERENCE_DEPARTS of this key and batch: sample -> the reference's own
+    float32 departure by output) is held to refs within float_checks.
+    listed_limits, checked here. At most MAX_FLIPPED samples may be either;
+    flips[what] lists each with the kernel's and the float32 plain version's
+    worst error against float64. Returns the references the other samples are
+    held to and the mask of the samples held so."""
+    B = refs[0].shape[0]
+    listed = {i: dep for i, dep in listed.items() if i < B}
+    is_listed = torch.zeros(B, dtype=torch.bool, device=refs[0].device)
+    is_listed[list(listed)] = True
+    flipped = departing(names, plain32, refs, limits, default) & ~is_listed
+    moved = departing(names, outs, refs, limits, default) & is_listed
+    held = [torch.where(flipped[:, None], p.double(), b.double()) for p, b in zip(plain32, refs)]
+    flips[what] = [
+        {"sample": i, "kernel_vs_f64": worst_over_limit(names, limits, default, outs, refs, i),
+         "plain32_vs_f64": worst_over_limit(names, limits, default, plain32, refs, i),
+         "held_to": "reference's float32 departure" if bool(is_listed[i]) else "float32 plain version"}
+        for i in (flipped | moved).nonzero().flatten().tolist()
+    ]
+    if len(flips[what]) > MAX_FLIPPED:
+        raise AssertionError(f"{what}: float32 departs in {len(flips[what])} samples: {flips[what]}")
+    for i, dep in listed.items():
+        lim_i = listed_limits(dep, limits)
+        for name, a, b in zip(names, outs, refs):
+            err = float((a[i].double() - b[i].double()).abs().max())
+            limit = lim_i.get(name, default)
+            if not (err <= limit):
+                raise AssertionError(f"{what}: sample {i} (listed) {name} differs by {err:.3e} > {limit:.2e}")
+    return held, is_listed
+
+
+def compare(model, outs, refs, limits, default, what, plain32=None, flips=None, inputs=None, listed=None):
+    """Worst error of each output against refs; raises beyond its limit.
+    With plain32, the float32 departures are held as hold_departures says."""
+    names = engine_cuda.OUTPUT_NAMES
     if plain32 is not None:
-        flipped = torch.zeros(refs[0].shape[0], dtype=torch.bool, device=refs[0].device)
-        for limit, p, b in zip(limits, plain32, refs):
-            flipped |= ~((p.double() - b.double()).abs().max(-1).values <= limit)
-        held = [torch.where(flipped[:, None], p.double(), b.double()) for p, b in zip(plain32, refs)]
-        loose = departing(engine_cuda.OUTPUT_NAMES, outs, held, tol, tol_default) if sensitive else \
-            torch.zeros_like(flipped)
-        flips[what] = [
-            {"sample": i, "kernel_vs_f64": worst_over_limit(specs, limits, outs, refs, i),
-             "plain32_vs_f64": worst_over_limit(specs, limits, plain32, refs, i),
-             "held_to": "finite (float32-sensitive key)" if bool(loose[i]) else "float32 plain version"}
-            for i in (flipped | loose).nonzero().flatten().tolist()
-        ]
-        if len(flips[what]) > MAX_FLIPPED:
-            raise AssertionError(f"{what}: float32 flips a branch in {len(flips[what])} samples")
-        for a in outs:
-            require(bool(torch.isfinite(a[loose]).all()), f"{what}: a departing sample is not finite")
-        refs = [torch.where(loose[:, None], a.double(), h) for a, h in zip(outs, held)]
-    for (name, _), limit, a, b in zip(specs, limits, outs, refs):
+        refs, is_listed = hold_departures(names, outs, refs, limits, default, what, plain32, flips, listed or {})
+        outs, refs = [a[~is_listed] for a in outs], [b[~is_listed] for b in refs]
+        if inputs is not None:
+            inputs = [x[~is_listed] for x in inputs]
+    worst = {}
+    for name, a, b in zip(names, outs, refs):
+        limit = limits.get(name, default)
         err = float((a.double() - b.double()).abs().max())
         worst[name] = err
         if not (err <= limit):  # also catches NaN
             raise AssertionError(
-                f"{what}: {name} differs by {err:.3e} > {limit:.1e}; {dump_failure(what, name, a, b, limit, inputs)}"
+                f"{what}: {name} differs by {err:.3e} > {limit:.2e}; {dump_failure(what, name, a, b, limit, inputs)}"
             )
     return worst
 
@@ -204,17 +200,17 @@ def cuda_ms(fn, n):
 
 def phase_compare(name, mj):
     """Phase 3, kernel E on one scene; returns what phase 5 needs."""
-    tol64, tol32 = tolerances(name, torch.float64)[0], tolerances(name, torch.float32)[0]
     m64 = put_model(mj, device=DEVICE, dtype=torch.float64)
     m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
     qpos, qvel, ctrl = contact_rich_batch(name, mj, m64, B_FULL)
-    errs, flips = {}, {}
+    errs, flips, limits = {}, {}, {}
+    h = float(mj.opt.timestep)
 
     ref1 = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1)
     out1 = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049"] = compare(m64, out1, ref1, tol64, TOL_F64_DEFAULT, f"{name}: f64 B=2049",
-                                inputs=(qpos, qvel, ctrl))
+    lim64, d64 = limits["f64"] = step_limits(torch.float64, ref1[QACC], h)
+    errs["f64_B2049"] = compare(m64, out1, ref1, lim64, d64, f"{name}: f64 B=2049", inputs=(qpos, qvel, ctrl))
     counts = {"samples_in_contact": int((out1[8][:, : m64.ncon] < 0).any(-1).sum())}
     require(counts["samples_in_contact"] > 0, f"{name}: no sample of the batch is in contact")
     if box_slots(m64.pair_table):
@@ -224,7 +220,7 @@ def phase_compare(name, mj):
     one = engine_cuda.step_core(m64, qpos[:1], qvel[:1], ctrl[:1], 1)
     torch.cuda.synchronize()
     errs["f64_B1"] = compare(
-        m64, one, [r[:1] for r in ref1], tol64, TOL_F64_DEFAULT, f"{name}: f64 B=1"
+        m64, one, [r[:1] for r in ref1], lim64, d64, f"{name}: f64 B=1"
     )
 
     # four steps under constant ctrl drive joints into their limits: the
@@ -235,7 +231,8 @@ def phase_compare(name, mj):
     for _ in range(3):
         seq = engine_cuda.step_core(m64, seq[0].contiguous(), seq[1].contiguous(), ctrl, 1)
     torch.cuda.synchronize()
-    errs["f64_B2049_n4"] = compare(m64, out4, ref4, tol64, TOL_F64_DEFAULT, f"{name}: f64 n_steps=4",
+    lim64_4, _ = limits["f64_n4"] = step_limits(torch.float64, ref4[QACC], h)
+    errs["f64_B2049_n4"] = compare(m64, out4, ref4, lim64_4, d64, f"{name}: f64 n_steps=4",
                                    inputs=(qpos, qvel, ctrl))
     n_limit = int(beyond_limits(m64, engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)[0]).sum())
     if n_limit == 0:
@@ -249,14 +246,13 @@ def phase_compare(name, mj):
     ref32 = engine_cuda.step_core_reference(m64, q32.double(), v32.double(), c32.double(), 1)
     plain32 = engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
     torch.cuda.synchronize()
-    sens = name in FLOAT32_SENSITIVE_KEYS
-    errs["f32_B2049"] = compare(m32, out32, ref32, tol32, TOL_F32_DEFAULT, f"{name}: f32 B=2049", plain32, flips,
-                                inputs=(q32, v32, c32), sensitive=sens)
+    lim32, d32 = limits["f32"] = step_limits(torch.float32, ref32[QACC], h)
+    errs["f32_B2049"] = compare(m32, out32, ref32, lim32, d32, f"{name}: f32 B=2049", plain32, flips,
+                                inputs=(q32, v32, c32), listed=REFERENCE_DEPARTS.get((name, "settled")))
     one32 = engine_cuda.step_core(m32, q32[:1], v32[:1], c32[:1], 1)
     torch.cuda.synchronize()
     errs["f32_B1"] = compare(
-        m32, one32, [r[:1] for r in ref32], tol32, TOL_F32_DEFAULT, f"{name}: f32 B=1",
-        [p[:1] for p in plain32], flips, sensitive=sens,
+        m32, one32, [r[:1] for r in ref32], lim32, d32, f"{name}: f32 B=1", [p[:1] for p in plain32], flips,
     )
     # the float32 kernel on the states that sit at joint limits (after three steps)
     at_limit = engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)
@@ -267,9 +263,10 @@ def phase_compare(name, mj):
     )
     plain32_l = engine_cuda.step_core_reference(m32, ql.float(), vl.float(), c32, 1)
     torch.cuda.synchronize()
+    lim32_l, _ = limits["f32_at_limits"] = step_limits(torch.float32, ref32_l[QACC], h)
     errs["f32_B2049_at_limits"] = compare(
-        m32, out32_l, ref32_l, tol32, TOL_F32_DEFAULT, f"{name}: f32 at joint limits", plain32_l, flips,
-        sensitive=sens,
+        m32, out32_l, ref32_l, lim32_l, d32, f"{name}: f32 at joint limits", plain32_l, flips,
+        listed=REFERENCE_DEPARTS.get((name, "at_limits")),
     )
     out32_4 = engine_cuda.step_core(m32, q32, v32, c32, 4)
     seq32 = out32
@@ -292,9 +289,9 @@ def phase_compare(name, mj):
 
     emit(
         "compare", ok=True, scene=name, samples_at_joint_limit=n_limit, **counts,
-        samples_float32_flips_a_branch=flips, max_flipped=MAX_FLIPPED,
+        samples_float32_departs=flips, max_flipped=MAX_FLIPPED,
         repeat_launch_bit_equal=True,
-        tolerance={"f64": {**tol64, "rest": TOL_F64_DEFAULT}, "f32": {**tol32, "rest": TOL_F32_DEFAULT}},
+        tolerance={k: {**lim, "rest": rest} for k, (lim, rest) in limits.items()},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
         n_steps4_equals_four_launches=True,
     )
@@ -400,37 +397,33 @@ def elliptic_counts(model, args, refs):
     return out
 
 
-def solver_errors(outs, refs, tol, what, relative=False, sensitive=False, flips=None):
-    """Worst error of x and qfrc; raises beyond tol. At a float32-sensitive
-    key (compare's ``sensitive``) up to MAX_FLIPPED samples may depart, each
-    finite and listed in flips[what]."""
+def solver_errors(outs, refs, limits, what, relative=False, plain32=None, flips=None, listed=None):
+    """Worst error of x and qfrc against refs; raises beyond their limits.
+    With plain32 (the float32 plain solve's outputs) the float32 departures
+    are held as hold_departures says; at a listed sample x and qfrc are
+    held within the reference's own float32 departure of qacc and
+    qfrc_constraint."""
+    names = ("x", "qfrc")
+    if plain32 is not None:
+        listed = {i: {"x": dep["qacc"], "qfrc": dep["qfrc"]} for i, dep in (listed or {}).items()}
+        refs, is_listed = hold_departures(names, outs, refs, limits, 0.0, f"solver kernel, {what}", plain32,
+                                          flips, listed)
+        outs, refs = [a[~is_listed] for a in outs], [b[~is_listed] for b in refs]
     worst = {}
-    if sensitive:
-        over = torch.zeros(outs[0].shape[0], dtype=torch.bool, device=outs[0].device)
-        for a, b in zip(outs, refs):
-            over |= ~((a.double() - b.double()).abs().max(-1).values <= tol)
-        flips[what] = over.nonzero().flatten().tolist()
-        require(len(flips[what]) <= MAX_FLIPPED, f"solver kernel, {what}: {len(flips[what])} samples depart")
-        require(all(bool(torch.isfinite(a[over]).all()) for a in outs), f"solver kernel, {what}: not finite")
-        outs = [a[~over] for a in outs]
-        refs = [b[~over] for b in refs]
-    for name, a, b in zip(("x", "qfrc"), outs, refs):
+    for name, a, b in zip(names, outs, refs):
         err = float((a.double() - b.double()).abs().max())
         if relative:
             err /= max(1.0, float(b.abs().max()))
         worst[name] = err
-        if not (err <= tol):  # also catches NaN
-            raise AssertionError(f"solver kernel, {what}: {name} differs by {err:.3e} > {tol:.1e}")
+        if not (err <= limits[name]):  # also catches NaN
+            raise AssertionError(f"solver kernel, {what}: {name} differs by {err:.3e} > {limits[name]:.2e}")
     return worst
 
 
 def phase_solver_compare(scene, m64, m32, states):
     """Phase 3, kernel S on one scene's rows (and, with the Go2 flat scene,
     the synthetic problem); returns what phase 5 needs."""
-    errs, counts, flips = {}, {}, {}
-    sensitive = scene in FLOAT32_SENSITIVE_KEYS
-    tol64 = TOL_SOLVER_BY_KEY.get(scene, {}).get("f64", TOL_SOLVER_F64)
-    tol32 = TOL_SOLVER_BY_KEY.get(scene, {}).get("f32", TOL_SOLVER_F32)
+    errs, counts, flips, limits = {}, {}, {}, {}
     lay = engine_cuda.static_layout(m64)
     r0 = len(lay["fric_dof"])  # rows: friction loss, limits from r0, contacts from r1
     r1 = r0 + len(lay["limit_jnt"])
@@ -449,20 +442,22 @@ def phase_solver_compare(scene, m64, m32, states):
             counts[name].update(elliptic_counts(m64, args, refs))
         outs = solver_cuda.solve_batched(m64, *args)
         torch.cuda.synchronize()
-        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, tol64, f"{scene} f64 {name}")
+        lim64 = limits[f"f64_{name}"] = solve_limits(torch.float64, refs[0])
+        errs[f"f64_B2049_{name}"] = solver_errors(outs, refs, lim64, f"{scene} f64 {name}")
         one = solver_cuda.solve_batched(m64, *[a[:1] for a in args])
         torch.cuda.synchronize()
-        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], tol64, f"{scene} f64 B=1 {name}")
+        errs[f"f64_B1_{name}"] = solver_errors(one, [r[:1] for r in refs], lim64, f"{scene} f64 B=1 {name}")
         args32 = tuple(a.float() for a in args)
         refs32 = solver_cuda.solve_batched_reference(m64, *[a.double() for a in args32])
+        plain32 = solver_cuda.solve_batched_reference(m32, *args32)
         outs32 = solver_cuda.solve_batched(m32, *args32)
         torch.cuda.synchronize()
-        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, tol32, f"{scene} f32 {name}",
-                                                  sensitive=sensitive, flips=flips)
+        lim32 = limits[f"f32_{name}"] = solve_limits(torch.float32, refs32[0])
+        errs[f"f32_B2049_{name}"] = solver_errors(outs32, refs32, lim32, f"{scene} f32 {name}", plain32=plain32,
+                                                  flips=flips, listed=REFERENCE_DEPARTS.get((scene, name)))
         one32 = solver_cuda.solve_batched(m32, *[a[:1] for a in args32])
         torch.cuda.synchronize()
-        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], tol32, f"{scene} f32 B=1 {name}",
-                                               sensitive=sensitive, flips=flips)
+        errs[f"f32_B1_{name}"] = solver_errors(one32, [r[:1] for r in refs32], lim32, f"{scene} f32 B=1 {name}")
         if name == "settled":
             timing_args, timing_args32 = args, args32
     require(counts["at_limits"]["samples_with_active_limit_row"] > 0, f"{scene}: no sample has an active joint-limit row")
@@ -481,7 +476,7 @@ def phase_solver_compare(scene, m64, m32, states):
     emit(
         "solver_compare", ok=True, scene=scene, rows=counts, synthetic_samples=zones,
         samples_float32_departs=flips, max_flipped=MAX_FLIPPED,
-        tolerance={"f64": tol64, "f32": tol32, "synthetic_relative": TOL_SYNTHETIC},
+        tolerance={**limits, "synthetic_relative": {str(k): v for k, v in TOL_SYNTHETIC.items()}},
         max_abs_err={k: max(v.values()) for k, v in errs.items()}, per_output=errs,
     )
     return solver_timing(scene, m64, m32, timing_args, timing_args32, errs)
@@ -500,6 +495,7 @@ def phase_synthetic_solver(errs):
     require(min(zones.values()) > 0, f"the synthetic problem misses a branch: {zones}")
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[1]
+        tol = {"x": TOL_SYNTHETIC[dtype], "qfrc": TOL_SYNTHETIC[dtype]}
         ms = solver_cases.synthetic_model(DEVICE, dtype)
         a = [torch.tensor(rows[k], dtype=dtype, device=DEVICE) for k in ("J", "D", "aref", "fl", "eta", "M", "qs")]
         ref = solver_cuda.solve_batched_reference(
@@ -507,11 +503,11 @@ def phase_synthetic_solver(errs):
         )
         out = solver_cuda.solve_batched(ms, *a)
         torch.cuda.synchronize()
-        errs[f"synthetic_{name}_B2049"] = solver_errors(out, ref, TOL_SYNTHETIC[name], f"synthetic {name}", relative=True)
+        errs[f"synthetic_{name}_B2049"] = solver_errors(out, ref, tol, f"synthetic {name}", relative=True)
         one = solver_cuda.solve_batched(ms, *[t[:1] for t in a])
         torch.cuda.synchronize()
         errs[f"synthetic_{name}_B1"] = solver_errors(
-            one, [r[:1] for r in ref], TOL_SYNTHETIC[name], f"synthetic {name} B=1", relative=True
+            one, [r[:1] for r in ref], tol, f"synthetic {name} B=1", relative=True
         )
     return zones
 
@@ -587,7 +583,7 @@ def phase_fused_vs_unfused(scene, m64, states):
         fused = engine_cuda.step_core(m64, qpos, qvel, ctrl, 1)
         unfused = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 1, solver.solve)
         torch.cuda.synchronize()
-        errs[name] = compare(m64, fused, unfused, tolerances(scene, torch.float64)[0], TOL_F64_DEFAULT,
+        errs[name] = compare(m64, fused, unfused, *step_limits(torch.float64, unfused[QACC], float(m64.opt.timestep)),
                              f"{scene}: fused vs unfused, {name}")
     require(solver_cuda.solve_batched.launches == before + 2, "the unfused step did not launch the solver kernel")
     emit("fused_vs_unfused", ok=True, scene=scene, samples_at_joint_limit=states["n_limit"],
@@ -639,10 +635,10 @@ WIDTHS = {
 }
 
 
-def phase_path(example, engine, n_steps, same_as=None, nsample=None):
-    """One path through runner.run at the shipped width (or at ``nsample``
-    samples), float32. Both launch counts are set to 0 just before and read
-    just after. The route's kernel must have been launched once per env step;
+def phase_path(example, engine, n_steps, same_as=None, overrides=None):
+    """One path through runner.run at the shipped width (or with the config's
+    ``overrides``), float32. Both launch counts are set to 0 just before and
+    read just after. The route's kernel must have been launched once per env step;
     besides, env.reset runs the plain forward once on either route, and its
     solve stage is one launch of the solver kernel. ``same_as`` is the qpos
     trajectory of another route's run of the same example and seed, which
@@ -653,29 +649,15 @@ def phase_path(example, engine, n_steps, same_as=None, nsample=None):
     cfg.update(n_steps=n_steps, output_dir=out_dir)
     width = {k: cfg[k] for k in WIDTHS[example]}
     require(width == WIDTHS[example], width)
-    if nsample is not None:
-        cfg["Nsample"] = width["Nsample"] = nsample
+    cfg.update(overrides or {})
+    width.update({k: v for k, v in (overrides or {}).items() if k in width})
     # physics steps an env step: one launch of the step kernel runs them all
     n_frames = round(cfg["dt"] / cfg["timestep"])
 
-    # the rollouts the planner's guard gives zero weight (non-finite reward),
-    # counted on the card and read once at the end
-    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    reverse_once = MBDPI.reverse_once
-
-    def counting_reverse_once(self, *a, **kw):
-        Ybar, info = reverse_once(self, *a, **kw)
-        dropped.add_((~torch.isfinite(info["rews"])).sum())
-        return Ybar, info
-
     engine_cuda.step_core.launches = 0
     solver_cuda.solve_batched.launches = 0
-    MBDPI.reverse_once = counting_reverse_once
     t0 = time.time()
-    try:
-        summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32, engine=engine)
-    finally:
-        MBDPI.reverse_once = reverse_once
+    summary = runner.run(cfg, progress=False, device=DEVICE, dtype=torch.float32, engine=engine)
     wall = time.time() - t0
     launches = {"engine_step": engine_cuda.step_core.launches,
                 "solver_newton": solver_cuda.solve_batched.launches}
@@ -699,7 +681,7 @@ def phase_path(example, engine, n_steps, same_as=None, nsample=None):
     require(np.isfinite(states).all(), "non-finite state")
     require(np.isfinite(summary["rews"]).all(), "non-finite reward")
     # the state the planner froze (its advance diverged) repeats exactly
-    guards = dict(rollouts_dropped=int(dropped),
+    guards = dict(rollouts_dropped=int(sum(summary["rollouts_dropped"])),
                   states_frozen=int((np.diff(states[:, 1 : 1 + nq + nv], axis=0) == 0).all(-1).sum()),
                   steps_with_nonfinite_planned_reward=int((~np.isfinite(summary["rews_plan"])).sum()))
     if example != "allegro_reorient":
@@ -707,16 +689,25 @@ def phase_path(example, engine, n_steps, same_as=None, nsample=None):
     advance = float(qpos[-1, 0] - qpos[0, 0])
     extra = {}
     if example == "allegro_reorient":
-        # the ball does not explode; the guards are printed. The reference's
-        # behaviour gate (tests/test_behavior.py: the ball's wz averages above
-        # +0.01 rad/s over 50 steps) was calibrated at its Nsample of 128 and
-        # is held there; at the shipped 2048 the mean is printed (it is
-        # negative at seed 0: PERF.md section 6, ROADMAP C5).
+        # The ball does not explode. The reference's behaviour gate
+        # (tests/test_behavior.py: qvel[5], the free joint's angular velocity
+        # about the ball's own z axis, averages above +0.01 rad/s over 50
+        # steps) was calibrated at Nsample 128, where it must hold; at the
+        # shipped width it is evaluated and reported, met or not (its sign
+        # there follows the seed, in float64 as in float32: PERF.md section
+        # 6). Printed beside it: the same about the world's z axis, and how
+        # far the ball's z axis tilted from the world's.
         wz = qvel[:, 5]
-        extra = dict(ball_wz_mean=float(wz.mean()), ball_wz_abs_max=float(np.abs(wz).max()))
+        R = maths.quat_to_mat(torch.tensor(qpos[:, 3:7], dtype=torch.float64))
+        w_world = torch.einsum("tij,tj->ti", R, torch.tensor(qvel[:, 3:6], dtype=torch.float64))
+        tilt = torch.rad2deg(torch.arccos(R[:, 2, 2].clamp(-1.0, 1.0)))
+        extra = dict(ball_wz_mean=float(wz.mean()), ball_wz_abs_max=float(np.abs(wz).max()),
+                     ball_world_wz_mean=float(w_world[:, 2].mean()), ball_tilt_deg_max=float(tilt.max()))
         require(extra["ball_wz_abs_max"] < 20.0, f"ball angular velocity reached {extra['ball_wz_abs_max']:.2f}")
-        if nsample == 128 and n_steps >= 50:
-            require(extra["ball_wz_mean"] > 0.01, f"ball wz averaged {extra['ball_wz_mean']:+.4f} rad/s")
+        extra["reference_spin_gate_met"] = n_steps >= 50 and extra["ball_wz_mean"] > 0.01
+        extra["seed"] = cfg["seed"]
+        if n_steps >= 50 and cfg["Nsample"] == 128:
+            require(extra["reference_spin_gate_met"], f"ball wz averaged {extra['ball_wz_mean']:+.4f} rad/s; {extra}")
     elif example == "unitree_go2_trot":  # still walking
         require(qpos[:, 2].min() > 0.18, f"base fell to {qpos[:, 2].min():.3f} m")
         if n_steps >= 50:
@@ -865,7 +856,9 @@ def main():
     paths["go2_crate_climb"] = phase_path("unitree_go2_crate_climb", "fused", args.crate_steps)
     paths["h1_push_crate"] = phase_path("unitree_h1_push_crate", "fused", args.push_steps)
     paths["allegro_reorient"] = phase_path("allegro_reorient", "fused", args.allegro_steps)
-    paths["allegro_reorient_gate"] = phase_path("allegro_reorient", "fused", 50, nsample=128)
+    for seed in range(4):  # the reference's spin gate at its own width, over seeds
+        paths[f"allegro_reorient_gate_seed{seed}"] = phase_path(
+            "allegro_reorient", "fused", 50, overrides={"Nsample": 128, "seed": seed})
     fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
 
     def kernel_line(name, source, replaces, launches, t, **more):

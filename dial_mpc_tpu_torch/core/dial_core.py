@@ -145,7 +145,8 @@ class MBDPI:
         # xbar (weighted body-position rollout) feeds the prediction telemetry
         xbar = torch.einsum("n,nijk->ijk", weights, xss)
 
-        info = {"rews": rews, "xbar": xbar, "new_noise_scale": noise_scale}
+        # n_dropped: the rollouts the guard gave zero weight
+        info = {"rews": rews, "xbar": xbar, "new_noise_scale": noise_scale, "n_dropped": (~finite).sum()}
         return Ybar, info
 
     # -- plan warm-start shift ---------------------------------------------

@@ -42,6 +42,7 @@ def pack_telemetry(state, u_exec, info) -> torch.Tensor:
             u_exec,
             state.reward,
             info["rews"][-1].mean()[None],
+            info["n_dropped"].sum()[None].to(ps.qpos.dtype),
             info["xbar"][-1].reshape(-1),
         ]
     )
@@ -73,6 +74,7 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
     ctrls = []
     rews = []
     rews_plan = []
+    dropped = []
     predictions = []
     freqs = []
     latency = LatencyRecorder()
@@ -103,11 +105,13 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
         u_h = host[o : o + nu]; o += nu
         reward_h = host[o]; o += 1
         rew_plan_h = host[o]; o += 1
+        dropped_h = host[o]; o += 1
         xbar_h = host[o:].reshape(xbar_shape)
         rollout_states.append((qpos_h, qvel_h, ctrl_h))
         ctrls.append(u_h)
         rews.append(float(reward_h))
         rews_plan.append(float(rew_plan_h))
+        dropped.append(int(dropped_h))
         predictions.append(xbar_h)
         freqs.append(1.0 / max(elapsed, 1e-9))
         if t > 0:  # the first step runs Ndiffuse_init levels and builds the kernel
@@ -136,6 +140,7 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
         "mean_reward": mean_rew,
         "rews": rews,
         "rews_plan": rews_plan,
+        "rollouts_dropped": dropped,  # a step's rollouts of non-finite reward, over its levels
         "freqs": freqs,
         "latency": latency.summary(),
         "states_path": states_path,

@@ -682,19 +682,6 @@ def _assert_host_matches_plain(sc, out, ctrl, dtype, n_steps):
     t = lambda a: torch.tensor(a, dtype=F64)
     refs = engine_cuda.step_core_reference(tm, t(sc["qpos"]), t(sc["qvel"]), t(ctrl), n_steps)
     assert out.shape[1] == sum(n for _, n in engine_cuda.out_specs(tm))
-    keep = np.ones(out.shape[0], bool)
-    if dtype == "float32" and sc["key"] in float_checks.FLOAT32_SENSITIVE_KEYS:
-        # at such a key float32 rounding alone moves a few samples beyond
-        # these tolerances, in the reference's float32 step as well (through
-        # the solve's conditioning): at most MAX_FLIPPED of them, held to be
-        # finite, as chip_smoke.py holds the kernel on the card
-        o, bad = 0, np.zeros(out.shape[0], bool)
-        for (name, n), ref in zip(engine_cuda.out_specs(tm), refs):
-            tol = _HOST_TOL_F32.get(name, 1e-4)
-            bad |= ~(np.abs(out[:, o : o + n] - ref.numpy()) <= tol + tol * np.abs(ref.numpy())).all(1)
-            o += n
-        assert bad.sum() <= float_checks.MAX_FLIPPED and np.isfinite(out).all()
-        keep = ~bad
     o = 0
     for (name, n), ref in zip(engine_cuda.out_specs(tm), refs):
         got = out[:, o : o + n]
@@ -703,7 +690,7 @@ def _assert_host_matches_plain(sc, out, ctrl, dtype, n_steps):
             tol = _OUT_TOL.get(name, 1e-7)
         else:  # float32 arithmetic against the float64 plain version
             tol = _HOST_TOL_F32.get(name, 1e-4)
-        np.testing.assert_allclose(got[keep], ref.numpy()[keep], atol=tol, rtol=tol, err_msg=f"{name} {dtype}")
+        np.testing.assert_allclose(got, ref.numpy(), atol=tol, rtol=tol, err_msg=f"{name} {dtype}")
 
 
 # the kernel's host build at the Go2 flat key and at one key of each new kind:
@@ -913,24 +900,27 @@ def test_euler_damp_qacc_matches_jax():
 # ---------------------------------------------------------------------------
 
 # samples the card's float32 plain version or kernel moved away from float64
-# beyond tools/float_checks.py's tolerances in chip_smoke.py's runs (PERF.md
-# section 6), in the batches made below: H1 walk and Go2 crate on PR 5's last
-# run (the kernel and the float32 plain version), the Allegro's on PR 6's
-# first full run (the kernel alone)
-CARD_FLIPS = {"h1_walk": [1012], "go2_crate": [1899], "allegro": [1575]}
+# beyond tools/float_checks.py's limits in chip_smoke.py's runs (PERF.md
+# section 6), in the batches made below (the kernel and the float32 plain
+# version alike). The Allegro's are float_checks.REFERENCE_DEPARTS.
+CARD_FLIPS = {("h1_walk", "settled"): [1012], ("go2_crate", "settled"): [811, 1899],
+              ("h1_push_crate", "settled"): [391, 1072]}
 B_CARD = 2049  # chip_smoke.py's batch: Nsample + 1 rollouts
 
 
 def _card_batch(key):
-    """chip_smoke.py's phase-3 batch of a scene (tools/float_checks.py,
-    seed 0), made here by the plain float64 step: float32-rounded inputs, and
-    the models in both types."""
+    """chip_smoke.py's phase-3 batches of a scene (tools/float_checks.py,
+    seed 0), made here by the plain float64 step: the settled states and the
+    states three steps on (at the joint limits), with their ctrl, rounded to
+    float32; the models in both types."""
     robot, xml = scene_cases.SCENES[key]
     cm = compiled_model.load_scene(robot, xml)
     cm.opt.timestep = _timestep(key)
     m64, m32 = put_model(cm, device="cpu", dtype=F64), put_model(cm, device="cpu", dtype=torch.float32)
     qpos, qvel, ctrl = float_checks.contact_rich_batch(key, cm, m64, B_CARD)
-    return m64, m32, qpos.float(), qvel.float(), ctrl.float()
+    at_limits = engine_cuda.step_core_reference(m64, qpos, qvel, ctrl, 3)
+    batches = {"settled": (qpos, qvel), "at_limits": (at_limits[0], at_limits[1])}
+    return m64, m32, {k: (q.float(), v.float(), ctrl.float()) for k, (q, v) in batches.items()}
 
 
 _REF_STEPS = {}
@@ -939,12 +929,16 @@ _REF_STEPS = {}
 def _reference_outputs(key, dtype, qpos, qvel, ctrl):
     """The reference's forward.step on a few samples, one jitted call a
     sample, in dtype; its 11 products in the order of engine_cuda.out_specs
-    (an empty product as zero columns)."""
+    (an empty product as zero columns), then qfrc_constraint."""
     mj = load_mj(SCENES[key])
     mj.opt.timestep = _timestep(key)
     if (key, dtype) not in _REF_STEPS:
         jm = jmodel.put_model(mj, dtype=dtype)
-        _REF_STEPS[key, dtype] = (jm, jax.jit(lambda d: engine_pallas.trim_data(jm, jax_step(jm, d))))
+        def step_and_qfrc(d):
+            full = jax_step(jm, d)
+            return engine_pallas.trim_data(jm, full), full.qfrc_constraint
+
+        _REF_STEPS[key, dtype] = (jm, jax.jit(step_and_qfrc))
     jm, step1 = _REF_STEPS[key, dtype]
     d0 = jmodel.make_data(jm, dtype=dtype)
     rows = []
@@ -958,37 +952,92 @@ def _reference_outputs(key, dtype, qpos, qvel, ctrl):
     finally:
         jax.config.update("jax_persistent_cache_min_compile_time_secs", least)
     for q, v, c in zip(qpos, qvel, ctrl):
-        lean = step1(jreplace(d0, qpos=jnp.asarray(q, dtype), qvel=jnp.asarray(v, dtype), ctrl=jnp.asarray(c, dtype)))
+        lean, qfrc = step1(jreplace(d0, qpos=jnp.asarray(q, dtype), qvel=jnp.asarray(v, dtype),
+                                    ctrl=jnp.asarray(c, dtype)))
         rows.append([np.asarray(a, np.float64).reshape(-1) for a in (
             lean.qpos, lean.qvel, lean.site_xpos, lean.site_xmat, lean.x_pos, lean.x_rot, lean.xd_vel,
-            lean.xd_ang, lean.contact.dist, lean.contact.pos, lean.qacc)])
+            lean.xd_ang, lean.contact.dist, lean.contact.pos, lean.qacc, qfrc)])
     return [torch.tensor(np.stack(col)) for col in zip(*rows)]
+
+
+def _contacts_on_reference_kinematics(key, q, v):
+    """One sample's float32 kinematics in the reference and in the port, and
+    the contacts of the reference's collider and of the port's, both on the
+    reference's float32 kinematics: numpy arrays by name."""
+    from dial_mpc_tpu.physics import collision as jcollision, kinematics as jkinematics
+    from dial_mpc_tpu_torch.physics import collision as tcollision, kinematics as tkinematics
+
+    mj = load_mj(SCENES[key])
+    mj.opt.timestep = _timestep(key)
+    jm = jmodel.put_model(mj, dtype=jnp.float32)
+    d = jreplace(jmodel.make_data(jm, dtype=jnp.float32), qpos=jnp.asarray(q, jnp.float32),
+                 qvel=jnp.asarray(v, jnp.float32))
+    jk = jax.jit(lambda d: jkinematics.kinematics(jm, d))(d)
+    jc = jax.jit(lambda d: jcollision.collide(jm, d))(jk).contact
+    robot, xml = scene_cases.SCENES[key]
+    cm = compiled_model.load_scene(robot, xml)
+    tm = put_model(cm, device="cpu", dtype=torch.float32)
+    td = make_data(tm, 1).replace(qpos=torch.tensor(np.asarray(q, np.float32))[None],
+                                  qvel=torch.tensor(np.asarray(v, np.float32))[None])
+    tk = tkinematics.kinematics(tm, td)
+    on_ref = tk.replace(geom_xpos=torch.tensor(np.asarray(jk.geom_xpos))[None],
+                        geom_xmat=torch.tensor(np.asarray(jk.geom_xmat))[None])
+    tc = tcollision.collide(tm, on_ref).contact
+    return dict(
+        ref_geom_xpos=np.asarray(jk.geom_xpos), port_geom_xpos=tk.geom_xpos[0].numpy(),
+        ref_geom_xmat=np.asarray(jk.geom_xmat), port_geom_xmat=tk.geom_xmat[0].numpy(),
+        ref_pos=np.asarray(jc.pos), port_pos=tc.pos[0].numpy(), ref_dist=np.asarray(jc.dist),
+        port_dist=tc.dist[0].numpy(),
+    )
 
 
 @pytest.mark.parametrize("key", list(SCENES))
 def test_float32_flips_are_the_references_own(key):
     """chip_smoke.py holds a sample whose float32 plain version departs from
-    float64 (beyond tools/float_checks.py's float32 tolerances) to that float32 plain
-    version instead. That is sound only where float32 itself flips a branch
-    there, in the reference as in the port: every sample the port's float32
-    step moves away, and the two the card listed, must move away in the
-    reference's float32 step from its float64 step as well. The reference
+    float64 (beyond tools/float_checks.py's limits) to that float32 plain
+    version instead, and a sample of float_checks.REFERENCE_DEPARTS to float64
+    within twice the reference's own float32 departure. That is sound only
+    where float32 rounding alone moves the sample, in the reference as in the
+    port. On both batches chip_smoke.py makes (settled, at the joint limits):
+    every sample the port's float32 step moves away, and those the card
+    listed, must move away in the reference's float32 step from its float64
+    step as well (or, where it does not, be a contact point that float32
+    rounding of the kinematics sets, as said below); and at each listed
+    sample the reference's departure must reach the listed one. The reference
     runs only on those samples."""
-    m64, m32, q32, v32, c32 = _card_batch(key)
+    m64, m32, batches = _card_batch(key)
     names = engine_cuda.OUTPUT_NAMES
-    plain32 = engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
-    plain64 = engine_cuda.step_core_reference(m64, q32.double(), v32.double(), c32.double(), 1)
-    tol, tol_default = float_checks.tolerances(key, torch.float32)
-    flipped = float_checks.departing(names, plain32, plain64, tol, tol_default).nonzero().flatten().tolist()
-    assert len(flipped) <= float_checks.MAX_FLIPPED, f"{key}: float32 moves {len(flipped)} samples"
-    samples = sorted(set(flipped) | set(CARD_FLIPS.get(key, [])))
-    if not samples:
-        return
-    args = [a[samples].double().numpy() for a in (q32, v32, c32)]
-    ref32 = _reference_outputs(key, jnp.float32, *args)
-    ref64 = _reference_outputs(key, jnp.float64, *args)
-    kept = [n for n, r in zip(names, ref64) if r.shape[1]]  # the Allegro has no sites
-    ref32, ref64 = [r for r in ref32 if r.shape[1]], [r for r in ref64 if r.shape[1]]
-    departs = float_checks.departing(kept, ref32, ref64, tol, tol_default).tolist()
-    stays = [s for s, d in zip(samples, departs) if not d]
-    assert not stays, f"{key}: the reference's float32 step stays with float64 at samples {stays}"
+    for batch, (q32, v32, c32) in batches.items():
+        plain32 = engine_cuda.step_core_reference(m32, q32, v32, c32, 1)
+        plain64 = engine_cuda.step_core_reference(m64, q32.double(), v32.double(), c32.double(), 1)
+        tol, tol_default = float_checks.step_limits(torch.float32, plain64[names.index("qacc")], _timestep(key))
+        listed = float_checks.REFERENCE_DEPARTS.get((key, batch), {})
+        flipped = float_checks.departing(names, plain32, plain64, tol, tol_default).nonzero().flatten().tolist()
+        assert len(set(flipped) | set(listed)) <= float_checks.MAX_FLIPPED, f"{key} {batch}: float32 moves {flipped}"
+        for s in sorted(set(flipped) | set(CARD_FLIPS.get((key, batch), [])) | set(listed)):
+            args = [a[[s]].double().numpy() for a in (q32, v32, c32)]
+            ref32 = _reference_outputs(key, jnp.float32, *args)
+            ref64 = _reference_outputs(key, jnp.float64, *args)
+            err = {n: float((a - b).abs().max()) for n, a, b in zip([*names, "qfrc"], ref32, ref64) if b.shape[1]}
+            for out, least in listed.get(s, {}).items():
+                assert err[out] >= least, f"{key} {batch} sample {s}: the reference's float32 {out} departs by {err}"
+            if any(not (e <= tol.get(n, tol_default)) for n, e in err.items() if n != "qfrc"):
+                continue
+            # The reference's float32 step stays there. Sound only where the
+            # port's departure is a contact at a point that rounding sets (a
+            # sphere centre a hair inside a box face, whose normal is the
+            # direction of a vector of a few ulps of its ends): the port's
+            # float32 kinematics within eight ulps of the reference's (a chain
+            # of up to seven bodies, an ulp or so each), and the port's
+            # collider on the reference's float32 kinematics giving the
+            # reference's float32 contacts within two.
+            mine = {n: float((a[s].double() - b[s]).abs().max()) for n, a, b in zip(names, plain32, plain64)}
+            over = [n for n, e in mine.items() if not (e <= tol.get(n, tol_default))]
+            assert set(over) <= {"cpos", "cdist"}, f"{key} {batch} sample {s}: the reference stays, the port's {over} depart"
+            c = _contacts_on_reference_kinematics(key, args[0][0], args[1][0])
+            ulp = float(np.finfo(np.float32).eps)
+            for what, ulps in (("geom_xpos", 8), ("geom_xmat", 8), ("pos", 2), ("dist", 2)):
+                ref, port = c["ref_" + what], c["port_" + what]
+                np.testing.assert_allclose(port.reshape(ref.shape), ref, rtol=0,
+                                           atol=ulps * ulp * max(1.0, float(np.abs(ref).max())),
+                                           err_msg=f"{key} {batch} sample {s}: {what}")
