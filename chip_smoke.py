@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N]
         [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N]
-        [--allegro-steps N] [--compare-only]
+        [--allegro-steps N] [--deploy-ticks N] [--deploy-loop-ticks N] [--compare-only]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
@@ -39,7 +39,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
      jog (--jog-steps), H1 loco (--loco-steps), Go2 crate climb
      (--crate-steps), H1 push crate (--push-steps) and Allegro in-hand
      reorientation (--allegro-steps) on the fused route;
-  5. the kernels' times beside their bounds.
+  5. the asynchronous deploy path (dial_mpc_tpu_torch.deploy.planner_proc.
+     MBDPublisher), float32 at the width of each deploy YAML, launch counts
+     checked: (a) --deploy-ticks ticks of each deploy example on a bus this
+     script creates and holds at the home keyframe, with the tick's host time,
+     the CUDA-event span of its device work and the profiler's device busy
+     time; (b) a closed loop in sync mode, Go2 trot deploy for
+     --deploy-loop-ticks ticks against tools/plain_sim.py (the plain physics
+     on the CPU, float64, in a subprocess) in the sim server's place;
+  6. the kernels' times beside their bounds.
 The last line is {"ok": true, "device": {...}}. With --compare-only the
 script stops after phase 3 and prints no such line.
 """
@@ -49,6 +57,7 @@ import concurrent.futures
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -64,12 +73,13 @@ if not torch.cuda.is_available():
 import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core import runner
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
+from dial_mpc_tpu_torch.deploy.planner_proc import MBDPublisher
 from dial_mpc_tpu_torch.physics import (
     cuda_build, engine_cuda, forward, make_data, maths, put_model, solver, solver_cuda,
 )
 from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
-from dial_mpc_tpu_torch.tools import solver_cases
+from dial_mpc_tpu_torch.tools import deploy_bench, solver_cases
 from dial_mpc_tpu_torch.tools.float_checks import (
     MAX_FLIPPED, REFERENCE_DEPARTS, TOL_SYNTHETIC, contact_rich_batch, departing, listed_limits, solve_limits,
     step_limits,
@@ -755,6 +765,129 @@ def phase_path(example, engine, n_steps, same_as=None, overrides=None):
                 p90_ms=step_ms[int(len(step_ms) * 0.9)], first_ms=1e3 / summary["freqs"][0], qpos=qpos)
 
 
+DEPLOY_WIDTHS = {
+    "unitree_go2_trot_deploy": dict(Nsample=2048, Hsample=16, Hnode=4, Ndiffuse=1, Ndiffuse_init=10),
+    "unitree_go2_seq_jump_deploy": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
+    "unitree_h1_loco_deploy": dict(Nsample=3000, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
+}
+
+
+def deploy_run(example, pub, n_ticks):
+    """n_ticks of pub.main_loop with both launch counts set to 0 just before
+    and read just after. A tick runs its levels' rollouts (Hsample + 1 env
+    steps a level, one launch of the step kernel each) and no env advance;
+    init_state runs the plain forward twice (the env's reset and the state
+    at the bus's q), each solve one launch of the solver kernel."""
+    cfg = pub.dial_config
+    engine_cuda.step_core.launches = 0
+    solver_cuda.solve_batched.launches = 0
+    pub.main_loop(max_iters=n_ticks, verbose=False)
+    launches = {"engine_step": engine_cuda.step_core.launches,
+                "solver_newton": solver_cuda.solve_batched.launches}
+    per_level = cfg.Hsample + 1
+    want = {"engine_step": per_level * (cfg.Ndiffuse_init + cfg.Ndiffuse * (n_ticks - 1)), "solver_newton": 2}
+    require(launches == want, f"{example}: launches {launches} != {want}")
+    require(pub.last_latency["n"] == n_ticks - 1, f"{example}: latency holds {pub.last_latency['n']} ticks")
+    width = {k: getattr(cfg, k) for k in DEPLOY_WIDTHS[example]}
+    require(width == DEPLOY_WIDTHS[example], width)
+    return dict(launches=launches, width=width, launches_first_tick=per_level * cfg.Ndiffuse_init,
+                launches_per_tick=per_level * cfg.Ndiffuse)
+
+
+def check_published(example, pub):
+    """What the planner published on the bus: finite joint targets, torques
+    and body positions, torques not all zero, refs written (the publisher
+    seeds them with 1.0) and of a body's height, the plan time written."""
+    acts, tau, refs = np.array(pub.bus.acts), np.array(pub.bus.tau), np.array(pub.bus.refs)
+    nb = pub._nb
+    require(np.isfinite(acts).all() and np.isfinite(tau).all() and np.isfinite(refs).all(),
+            f"{example}: non-finite plan on the bus")
+    require(np.abs(tau).max() > 0.0, f"{example}: the planner published empty torques")
+    require(not np.allclose(refs[:, :nb], 1.0) and np.abs(refs[:, :nb, 2]).max() < 2.0,
+            f"{example}: refs not written by the packed transfer")
+    require(float(pub.bus.plan_time[0]) >= 0.0, f"{example}: plan time never written")
+    return dict(tau_abs_max=float(np.abs(tau).max()), plan_time=float(pub.bus.plan_time[0]))
+
+
+def phase_deploy_ticks(example, n_ticks):
+    """(a) The publisher's ticks on a static bus at the deploy YAML's width."""
+    _, cfg, env_cfg, env = deploy_bench.load_example(example)
+    bus = deploy_bench.static_bus(env, cfg)
+    try:
+        pub = MBDPublisher(env, env_cfg, cfg)
+        try:
+            spans = deploy_bench.record_device_spans(pub)
+            t0 = time.time()
+            run = deploy_run(example, pub, n_ticks)
+            wall = time.time() - t0
+            published = check_published(example, pub)
+            stats = deploy_bench.tick_stats(pub, spans)
+            busy = deploy_bench.device_busy_ms(pub, stats["host_ms_p50"])
+        finally:
+            pub.close()
+    finally:
+        bus.close()
+    emit("deploy_ticks", ok=True, example=example, n_ticks=n_ticks, **run["width"], dtype="float32",
+         launches=run["launches"], launches_first_tick=run["launches_first_tick"],
+         launches_per_tick=run["launches_per_tick"], **stats, **busy, **published, wall_s=wall, card=deploy_bench.card())
+    return dict(launches=run["launches"]["engine_step"], **stats, **busy)
+
+
+def phase_deploy_closed_loop(n_ticks):
+    """(b) Go2 trot deploy in sync mode at full width against the plain
+    physics (tools/plain_sim.py, a subprocess that creates the bus, as the
+    sim server does). Held to what tests/test_deploy.py's sync integration
+    holds the JAX package to (the sim clock advanced, a plan was published,
+    torques not all zero), every published state finite, and the trot path's
+    gate: the base above 0.18 m over the run."""
+    example = "unitree_go2_trot_deploy"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    out = os.path.join(out_dir, "plain_sim.npz")
+    sim = subprocess.Popen(
+        [sys.executable, "-m", "dial_mpc_tpu_torch.tools.plain_sim", "--example", example, "--out", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+    )
+    try:
+        lines = []
+        while not lines or "PLAIN_SIM_READY" not in lines[-1]:
+            line = sim.stdout.readline()
+            require(line != "", f"the plain sim exited before creating the bus: {''.join(lines)[-2000:]}")
+            lines.append(line)
+        _, cfg, env_cfg, env = deploy_bench.load_example(example)
+        pub = MBDPublisher(env, env_cfg, cfg)
+        try:
+            t0 = time.time()
+            run = deploy_run(example, pub, n_ticks)
+            wall = time.time() - t0
+            published = check_published(example, pub)
+            t_sim = float(pub.bus.time[0])
+            latency = pub.last_latency
+        finally:
+            pub.close()
+        sim.send_signal(signal.SIGTERM)
+        sim_out, _ = sim.communicate(timeout=120)
+        require(sim.returncode == 0 and "PLAIN_SIM_DONE" in sim_out, f"plain sim failed: {sim_out[-2000:]}")
+        with np.load(out) as z:
+            states, nq = z["states"], int(z["nq"])
+    finally:
+        if sim.poll() is None:
+            sim.kill()
+            sim.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    require(t_sim > 0.0, "sim clock never advanced")
+    require(np.isfinite(states).all(), "the plain sim published a non-finite state")
+    base_z = states[:, 1 + 2]  # columns: t, qpos, qvel, ctrl
+    gate = dict(base_z_min=float(base_z.min()), base_z_final=float(base_z[-1]),
+                base_x_advance=float(states[-1, 1] - states[0, 1]))
+    emit("deploy_closed_loop", ok=bool(base_z.min() > 0.18), example=example, n_ticks=n_ticks,
+         **run["width"], dtype="float32", launches=run["launches"], sim_steps=int(states.shape[0]),
+         sim_time_s=t_sim, sim_dt=0.005, nq=nq, **gate, **published, host_ms_p50=latency["p50_ms"],
+         host_ms_p90=latency["p90_ms"], host_ms_max=latency["max_ms"], wall_s=wall)
+    require(base_z.min() > 0.18, f"closed loop: base fell to {base_z.min():.3f} m")
+    return dict(launches=run["launches"]["engine_step"], **gate)
+
+
 def build_all(models):
     """Phase 2: every library of the paths below, all nvcc runs started
     together: the step kernel and the solver kernel for each scene, and the
@@ -805,6 +938,10 @@ def main():
     ap.add_argument("--push-steps", type=int, default=20, help="control steps of H1 push crate, fused route")
     ap.add_argument("--allegro-steps", type=int, default=50,
                     help="control steps of Allegro in-hand reorientation, fused route")
+    ap.add_argument("--deploy-ticks", type=int, default=30,
+                    help="ticks of the deploy planner on a static bus, each deploy example")
+    ap.add_argument("--deploy-loop-ticks", type=int, default=100,
+                    help="ticks of the deploy planner in the closed sync-mode loop (Go2 trot)")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
     args = ap.parse_args()
@@ -860,6 +997,8 @@ def main():
         paths[f"allegro_reorient_gate_seed{seed}"] = phase_path(
             "allegro_reorient", "fused", 50, overrides={"Nsample": 128, "seed": seed})
     fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
+    deploy = {example: phase_deploy_ticks(example, args.deploy_ticks) for example in DEPLOY_WIDTHS}
+    deploy["unitree_go2_trot_deploy, closed loop"] = phase_deploy_closed_loop(args.deploy_loop_ticks)
 
     def kernel_line(name, source, replaces, launches, t, **more):
         return {
@@ -879,6 +1018,11 @@ def main():
             launches_by_path={k: v["launches"] for k, v in fused.items()},
             control_step_ms_by_path={k: dict(median=v["step_ms"], p90=v["p90_ms"], first=v["first_ms"])
                                      for k, v in fused.items()},
+            deploy_launches_by_path={k: v["launches"] for k, v in deploy.items()},
+            deploy_tick_ms={k: dict(host_p50=v["host_ms_p50"], host_p90=v["host_ms_p90"], host_max=v["host_ms_max"],
+                                    device_span_p50=v["device_span_ms_p50"], device_busy=v["device_busy_ms"],
+                                    device_idle_share=v["device_idle_share"])
+                            for k, v in deploy.items() if "host_ms_p50" in v},
             kernel_b1_ms=timing_e["kernel_b1_ms"], f64_kernel_ms=timing_e["kernel64_ms"],
             lanes=timing_e["lanes"], teams_per_sm=timing_e["teams_per_sm"],
             team_shared_bytes=timing_e["team_shared_bytes"], ptxas=timing_e["ptxas"],

@@ -12,6 +12,7 @@ import math
 from dataclasses import dataclass
 from typing import Union
 
+import numpy as np
 import torch
 
 from dial_mpc_tpu_torch.config.base_env_config import BaseEnvConfig
@@ -524,6 +525,28 @@ class UnitreeGo2SeqJumpEnv(UnitreeGo2Env):
         com_pos[1:, :2] += torch.cumsum(u[:, :2] * 1.3 - 0.65, dim=0)
         com_yaw = torch.cat([u.new_zeros(1), torch.cumsum(u[:, 2] * 1.0 - 0.5, dim=0)])
         return generate_jumping_sequence(com_pos, com_yaw, 0.1)
+
+    def update_viewer(self, viewer):
+        """Draw the contact-target circles as flat cylinders into a MuJoCo
+        viewer's user scene (the deploy sim server calls it once). ``mujoco``
+        is imported here: only a process with a viewer has it."""
+        import mujoco
+
+        targets = self._contact_targets.detach().cpu().double().numpy()
+        radius = self._contact_target_radius.detach().cpu().double().numpy()
+        cnt = viewer.user_scn.ngeom
+        for i in range(targets.shape[0]):
+            for j in range(4):
+                mujoco.mjv_initGeom(
+                    viewer.user_scn.geoms[cnt],
+                    type=mujoco.mjtGeom.mjGEOM_CYLINDER,
+                    size=np.array([float(radius[i, j]), 0.01, 0.0]),
+                    rgba=np.array([0.0, 1.0, 0.0, 0.5]),
+                    pos=targets[i, j],
+                    mat=np.eye(3).flatten(),
+                )
+                cnt += 1
+        viewer.user_scn.ngeom = cnt
 
 
 register_env("unitree_go2_seq_jump", UnitreeGo2SeqJumpEnv, UnitreeGo2SeqJumpEnvConfig)

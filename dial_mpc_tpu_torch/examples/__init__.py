@@ -14,3 +14,10 @@ examples = [
     "unitree_h1_push_crate",
     "allegro_reorient",
 ]
+
+# configurations of the asynchronous deploy path (deploy/planner_proc.py)
+deploy_examples = [
+    "unitree_go2_trot_deploy",
+    "unitree_go2_seq_jump_deploy",
+    "unitree_h1_loco_deploy",
+]

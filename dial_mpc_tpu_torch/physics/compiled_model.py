@@ -28,7 +28,7 @@ _OPT = (
     "cone", "disableflags", "tolerance", "ls_tolerance",
 )
 _ARRAYS = (
-    "qpos0", "key_qpos",
+    "qpos0", "key_qpos", "key_ctrl",
     "body_parentid", "body_rootid", "body_weldid", "body_jntadr", "body_jntnum",
     "body_dofadr", "body_dofnum", "body_pos", "body_quat", "body_ipos", "body_iquat",
     "body_mass", "body_inertia", "body_invweight0", "body_subtreemass",
@@ -83,6 +83,9 @@ class CompiledModel:
 
     def keyframe_qpos(self, name: str) -> np.ndarray:
         return np.array(self.key_qpos[self._id("key", name)])
+
+    def keyframe_ctrl(self, name: str) -> np.ndarray:
+        return np.array(self.key_ctrl[self._id("key", name)])
 
 
 def snapshot(mj) -> CompiledModel:

@@ -39,8 +39,13 @@ def test_sources_found():
     for expected in ("chip_smoke.py", "dial_mpc_tpu_torch/core/runner.py",
                      "dial_mpc_tpu_torch/physics/engine_cuda.py", "dial_mpc_tpu_torch/envs/unitree_go2_env.py",
                      "dial_mpc_tpu_torch/physics/solver_cuda.py", "dial_mpc_tpu_torch/physics/cuda_build.py",
-                     "dial_mpc_tpu_torch/tools/solver_cases.py"):
+                     "dial_mpc_tpu_torch/tools/solver_cases.py", "dial_mpc_tpu_torch/tools/deploy_bench.py",
+                     "dial_mpc_tpu_torch/tools/plain_sim.py"):
         assert expected in names
+    deploy = ("shm", "planner_proc", "sim_server", "sim2sim", "sim2real", "real", "localization/__init__",
+              "localization/base_plugin", "localization/vicon_shm_plugin", "localization/ros2_odometry_plugin")
+    for module in deploy:
+        assert f"dial_mpc_tpu_torch/deploy/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, ROOT))
@@ -57,12 +62,42 @@ def test_no_torch_compile():
             assert "torch.compile" not in f.read(), path
 
 
+# The localization plugins import their hardware SDKs when they are loaded
+# (deploy/localization/__init__.py loads a plugin by importing its module), so
+# where an SDK is missing their import may fail, and only for that SDK.
+HARDWARE_SDKS = {
+    "dial_mpc_tpu_torch.deploy.localization.ros2_odometry_plugin": ("rclpy", "nav_msgs"),
+    "dial_mpc_tpu_torch.deploy.localization.vicon_shm_plugin": ("pyvicon_datastream",),
+}
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, pkgutil, importlib, dial_mpc_tpu_torch\n"
+        f"sdks = {HARDWARE_SDKS!r}\n"
         "for m in pkgutil.walk_packages(dial_mpc_tpu_torch.__path__, 'dial_mpc_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    try:\n"
+        "        importlib.import_module(m.name)\n"
+        "    except ModuleNotFoundError as e:\n"
+        "        assert e.name.split('.')[0] in sdks.get(m.name, ()), (m.name, e.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dial_mpc_tpu', 'mujoco', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
+
+
+def test_planner_process_and_bus_import_no_mujoco():
+    """The planner runs on the GPU machine, which has no mujoco: neither the
+    planner process nor the bus may import it (the sim server and the
+    real-robot host import it when they are built)."""
+    code = (
+        "import sys\n"
+        "import dial_mpc_tpu_torch.deploy.planner_proc, dial_mpc_tpu_torch.deploy.shm\n"
+        "import dial_mpc_tpu_torch.deploy.sim_server, dial_mpc_tpu_torch.deploy.real\n"
+        "import dial_mpc_tpu_torch.tools.deploy_bench, dial_mpc_tpu_torch.tools.plain_sim\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('mujoco', 'jax', 'dial_mpc_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
