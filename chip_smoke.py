@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N]
         [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N]
-        [--allegro-steps N] [--deploy-ticks N] [--deploy-loop-ticks N] [--compare-only]
+        [--allegro-steps N] [--compare-only]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
@@ -17,7 +17,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      crate, and the states with a box contact counted; on the Allegro scene
      the active condim-6 slots and the elliptic rows in each cone zone
      counted):
-     - the step kernel: B = 2049 and B = 1, float64 and float32, n_steps = 4
+     - the step kernel: B = 2049 and B = 1, float64 and float32, and also
+       at each other batch a path of phases 4 and 5 gives it on this scene
+       (Nsample + 1 of the YAMLs: 3001 on H1 loco, 129 on the Allegro's
+       gate; path_batches), n_steps = 4
        against four sequential launches, and two launches on the same inputs
        (bit for bit); the states at a joint limit counted; its occupancy
        (samples a block, teams per SM), shared memory and ptxas numbers by
@@ -41,12 +44,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      reorientation (--allegro-steps) on the fused route;
   5. the asynchronous deploy path (dial_mpc_tpu_torch.deploy.planner_proc.
      MBDPublisher), float32 at the width of each deploy YAML, launch counts
-     checked: (a) --deploy-ticks ticks of each deploy example on a bus this
+     checked: (a) DEPLOY_TICKS ticks of each deploy example on a bus this
      script creates and holds at the home keyframe, with the tick's host time,
      the CUDA-event span of its device work and the profiler's device busy
      time; (b) a closed loop in sync mode, Go2 trot deploy for
-     --deploy-loop-ticks ticks against tools/plain_sim.py (the plain physics
-     on the CPU, float64, in a subprocess) in the sim server's place;
+     DEPLOY_LOOP_TICKS ticks against tools/plain_sim.py (the plain physics
+     on the CPU, float64, in a subprocess) in the sim server's place. Each
+     bus has segment names of its own run (shm.run_prefix), so that no other
+     run's bus on the host is met or taken over;
   6. the kernels' times beside their bounds.
 The last line is {"ok": true, "device": {...}}. With --compare-only the
 script stops after phase 3 and prints no such line.
@@ -74,6 +79,7 @@ import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core import runner
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.deploy.planner_proc import MBDPublisher
+from dial_mpc_tpu_torch.deploy.shm import run_prefix
 from dial_mpc_tpu_torch.physics import (
     cuda_build, engine_cuda, forward, make_data, maths, put_model, solver, solver_cuda,
 )
@@ -90,6 +96,14 @@ from dial_mpc_tpu_torch.utils.io_utils import get_example_path
 DEVICE = "cuda"
 QACC = engine_cuda.OUTPUT_NAMES.index("qacc")
 B_FULL = 2049  # Nsample + 1 rollouts of the shipped configs
+# the examples phase 4 runs at their YAML's width (phase 5 runs DEPLOY_WIDTHS'),
+# the Allegro gate's width, and the scene (a key of SCENES) of each env
+PATH_EXAMPLES = ("unitree_go2_trot", "unitree_go2_seq_jump", "unitree_h1_jog", "unitree_h1_loco",
+                 "unitree_go2_crate_climb", "unitree_h1_push_crate", "allegro_reorient")
+ALLEGRO_GATE_NSAMPLE = 128
+ENV_SCENES = {"unitree_go2_walk": "go2", "unitree_go2_seq_jump": "go2", "unitree_h1_walk": "h1_walk",
+              "unitree_h1_loco": "h1_loco", "unitree_go2_crate_climb": "go2_crate",
+              "unitree_h1_push_crate": "h1_push_crate", "allegro_reorient": "allegro"}
 
 H100_FP32_FLOPS = 67e12  # dense float32 outside the tensor cores, published peak
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -208,8 +222,25 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def phase_compare(name, mj):
-    """Phase 3, kernel E on one scene; returns what phase 5 needs."""
+def path_batches():
+    """scene -> the batches other than B_FULL that the paths of phases 4 and
+    5 give the step kernel there (Nsample + 1 of each YAML, and of the
+    Allegro gate's width)."""
+    runs = [(e, None) for e in PATH_EXAMPLES + tuple(DEPLOY_WIDTHS)]
+    runs.append(("allegro_reorient", ALLEGRO_GATE_NSAMPLE))
+    batches = {}
+    for example, nsample in runs:
+        with open(get_example_path(example + ".yaml")) as f:
+            cfg = yaml.safe_load(f)
+        b = (nsample or cfg["Nsample"]) + 1
+        if b != B_FULL:
+            batches.setdefault(ENV_SCENES[cfg["env_name"]], set()).add(b)
+    return {scene: sorted(bs) for scene, bs in batches.items()}
+
+
+def phase_compare(name, mj, path_b=()):
+    """Phase 3, kernel E on one scene; returns what phase 5 needs. ``path_b``:
+    the other batches the paths give the kernel on this scene."""
     m64 = put_model(mj, device=DEVICE, dtype=torch.float64)
     m32 = put_model(mj, device=DEVICE, dtype=torch.float32)
     qpos, qvel, ctrl = contact_rich_batch(name, mj, m64, B_FULL)
@@ -264,6 +295,23 @@ def phase_compare(name, mj):
     errs["f32_B1"] = compare(
         m32, one32, [r[:1] for r in ref32], lim32, d32, f"{name}: f32 B=1", [p[:1] for p in plain32], flips,
     )
+    # a path's other batch: another grid, another tail in the last block
+    for b in path_b:
+        qb, vb, cb = contact_rich_batch(name, mj, m64, b)
+        refb = engine_cuda.step_core_reference(m64, qb, vb, cb, 1)
+        outb = engine_cuda.step_core(m64, qb, vb, cb, 1)
+        torch.cuda.synchronize()
+        limb, db = limits[f"f64_B{b}"] = step_limits(torch.float64, refb[QACC], h)
+        errs[f"f64_B{b}"] = compare(m64, outb, refb, limb, db, f"{name}: f64 B={b}", inputs=(qb, vb, cb))
+        qb, vb, cb = qb.float(), vb.float(), cb.float()
+        outb = engine_cuda.step_core(m32, qb, vb, cb, 1)
+        refb = engine_cuda.step_core_reference(m64, qb.double(), vb.double(), cb.double(), 1)
+        plainb = engine_cuda.step_core_reference(m32, qb, vb, cb, 1)
+        torch.cuda.synchronize()
+        limb, db = limits[f"f32_B{b}"] = step_limits(torch.float32, refb[QACC], h)
+        errs[f"f32_B{b}"] = compare(m32, outb, refb, limb, db, f"{name}: f32 B={b}", plainb, flips,
+                                    inputs=(qb, vb, cb))
+        del qb, vb, cb, refb, outb, plainb
     # the float32 kernel on the states that sit at joint limits (after three steps)
     at_limit = engine_cuda.step_core(m64, qpos, qvel, ctrl, 3)
     ql, vl = at_limit[0].contiguous(), at_limit[1].contiguous()
@@ -770,6 +818,8 @@ DEPLOY_WIDTHS = {
     "unitree_go2_seq_jump_deploy": dict(Nsample=2048, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
     "unitree_h1_loco_deploy": dict(Nsample=3000, Hsample=20, Hnode=5, Ndiffuse=1, Ndiffuse_init=10),
 }
+DEPLOY_TICKS = 30  # ticks of each deploy example on a static bus
+DEPLOY_LOOP_TICKS = 100  # ticks of the closed sync-mode loop (Go2 trot deploy)
 
 
 def deploy_run(example, pub, n_ticks):
@@ -812,9 +862,10 @@ def check_published(example, pub):
 def phase_deploy_ticks(example, n_ticks):
     """(a) The publisher's ticks on a static bus at the deploy YAML's width."""
     _, cfg, env_cfg, env = deploy_bench.load_example(example)
-    bus = deploy_bench.static_bus(env, cfg)
+    prefix = run_prefix()
+    bus = deploy_bench.static_bus(env, cfg, prefix)
     try:
-        pub = MBDPublisher(env, env_cfg, cfg)
+        pub = MBDPublisher(env, env_cfg, cfg, bus_prefix=prefix)
         try:
             spans = deploy_bench.record_device_spans(pub)
             t0 = time.time()
@@ -843,8 +894,10 @@ def phase_deploy_closed_loop(n_ticks):
     example = "unitree_go2_trot_deploy"
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     out = os.path.join(out_dir, "plain_sim.npz")
+    prefix = run_prefix()
     sim = subprocess.Popen(
-        [sys.executable, "-m", "dial_mpc_tpu_torch.tools.plain_sim", "--example", example, "--out", out],
+        [sys.executable, "-m", "dial_mpc_tpu_torch.tools.plain_sim", "--example", example, "--out", out,
+         "--bus-prefix", prefix],
         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True,
     )
@@ -855,7 +908,7 @@ def phase_deploy_closed_loop(n_ticks):
             require(line != "", f"the plain sim exited before creating the bus: {''.join(lines)[-2000:]}")
             lines.append(line)
         _, cfg, env_cfg, env = deploy_bench.load_example(example)
-        pub = MBDPublisher(env, env_cfg, cfg)
+        pub = MBDPublisher(env, env_cfg, cfg, bus_prefix=prefix)
         try:
             t0 = time.time()
             run = deploy_run(example, pub, n_ticks)
@@ -938,10 +991,6 @@ def main():
     ap.add_argument("--push-steps", type=int, default=20, help="control steps of H1 push crate, fused route")
     ap.add_argument("--allegro-steps", type=int, default=50,
                     help="control steps of Allegro in-hand reorientation, fused route")
-    ap.add_argument("--deploy-ticks", type=int, default=30,
-                    help="ticks of the deploy planner on a static bus, each deploy example")
-    ap.add_argument("--deploy-loop-ticks", type=int, default=100,
-                    help="ticks of the deploy planner in the closed sync-mode loop (Go2 trot)")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
     args = ap.parse_args()
@@ -963,9 +1012,11 @@ def main():
     build_all({name: put_model(mj, device=DEVICE, dtype=torch.float32) for name, mj in mjs.items()})
 
     keys_e, keys_s = {}, {}
+    batches = path_batches()
+    emit("path_batches", B_full=B_FULL, others=batches)
     for name, mj in mjs.items():
         t_scene = time.time()
-        t_e, m64, m32, states = phase_compare(name, mj)
+        t_e, m64, m32, states = phase_compare(name, mj, batches.get(name, ()))
         emit("engine_step_timing", scene=name, **{k: v for k, v in t_e.items() if k != "max_abs_err"},
              card=smi)
         t_s = phase_solver_compare(name, m64, m32, states)
@@ -995,10 +1046,10 @@ def main():
     paths["allegro_reorient"] = phase_path("allegro_reorient", "fused", args.allegro_steps)
     for seed in range(4):  # the reference's spin gate at its own width, over seeds
         paths[f"allegro_reorient_gate_seed{seed}"] = phase_path(
-            "allegro_reorient", "fused", 50, overrides={"Nsample": 128, "seed": seed})
+            "allegro_reorient", "fused", 50, overrides={"Nsample": ALLEGRO_GATE_NSAMPLE, "seed": seed})
     fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
-    deploy = {example: phase_deploy_ticks(example, args.deploy_ticks) for example in DEPLOY_WIDTHS}
-    deploy["unitree_go2_trot_deploy, closed loop"] = phase_deploy_closed_loop(args.deploy_loop_ticks)
+    deploy = {example: phase_deploy_ticks(example, DEPLOY_TICKS) for example in DEPLOY_WIDTHS}
+    deploy["unitree_go2_trot_deploy, closed loop"] = phase_deploy_closed_loop(DEPLOY_LOOP_TICKS)
 
     def kernel_line(name, source, replaces, launches, t, **more):
         return {

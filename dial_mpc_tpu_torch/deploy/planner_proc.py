@@ -59,6 +59,9 @@ class MBDPublisher:
     ``sharding``: ``"none"`` plans on the env's device; ``"mesh"`` does the
     same where there is one device, and raises where there are more: the
     sharded planner is not ported yet.
+
+    ``bus_prefix`` is the prefix of the bus's segment names (``shm.ShmBus``);
+    the default, empty, is the names every sim server and robot host uses.
     """
 
     def __init__(
@@ -68,6 +71,7 @@ class MBDPublisher:
         dial_config: DialConfig,
         checkpoint_path: str | None = None,
         sharding: str = "none",
+        bus_prefix: str = "",
     ):
         self.dial_config = dial_config
         self.env = env
@@ -101,7 +105,7 @@ class MBDPublisher:
         # starting after the trunk
         self._nb = min(mj.nu, mj.nbody - 2)
 
-        self.bus = ShmBus(self.nq + self.nv, self.nu, self.n_acts, create=False)
+        self.bus = ShmBus(self.nq + self.nv, self.nu, self.n_acts, create=False, prefix=bus_prefix)
         self.bus.acts[:] = self.default_u
         self.bus.refs[:] = 1.0
         self.bus.plan_time[0] = -self.ctrl_dt

@@ -15,13 +15,27 @@ last-writer-wins semantics and the plan_time timestamp convention
 
 Each segment is allocated at its exact size; attach interoperates with a
 producer that allocated more, since POSIX shm maps whatever exists.
+
+With the default empty ``prefix`` these are the segments' names, as the JAX
+package names them. A run that must not meet another run's bus on the same
+host (a test, a benchmark) passes a prefix of its own (``run_prefix()``) to
+both sides, and creates with ``reclaim=False``, so that a live segment of
+another process is refused and never taken over.
 """
 
 from __future__ import annotations
 
+import os
+import secrets
 from multiprocessing import shared_memory
 
 import numpy as np
+
+
+def run_prefix() -> str:
+    """A segment-name prefix unique to this run: the process id and random
+    bits, so that runs in other process namespaces on one host differ too."""
+    return f"dmpc{os.getpid()}_{secrets.token_hex(4)}_"
 
 
 class ShmBus:
@@ -31,10 +45,15 @@ class ShmBus:
     (attach_timeout seconds), and unregisters attached segments from
     Python's multiprocessing resource tracker — otherwise a consumer
     process exiting would unlink the producer's live segments.
+
+    ``prefix`` goes before each segment's name. A creator finding a segment
+    of that name reclaims it (a crashed producer's leak) unless ``reclaim``
+    is False: then it raises FileExistsError and unlinks what it created.
     """
 
     def __init__(
-        self, nx: int, nu: int, n_acts: int, create: bool, attach_timeout: float = 30.0
+        self, nx: int, nu: int, n_acts: int, create: bool, attach_timeout: float = 30.0,
+        prefix: str = "", reclaim: bool = True,
     ):
         import time as _time
 
@@ -42,11 +61,14 @@ class ShmBus:
         self._segs = []
 
         def seg(name, shape):
+            name = prefix + name
             size = int(np.prod(shape)) * 4
             if create:
                 try:
                     s = shared_memory.SharedMemory(name=name, create=True, size=size)
                 except FileExistsError:
+                    if not reclaim:
+                        raise
                     # reclaim a segment leaked by a crashed producer
                     stale = shared_memory.SharedMemory(name=name, create=False)
                     stale.close()
@@ -73,12 +95,16 @@ class ShmBus:
             self._segs.append(s)
             return np.ndarray(shape, dtype=np.float32, buffer=s.buf)
 
-        self.time = seg("time_shm", (1,))
-        self.state = seg("state_shm", (nx,))
-        self.acts = seg("acts_shm", (n_acts, nu))
-        self.tau = seg("tau_shm", (n_acts, nu))
-        self.refs = seg("refs_shm", (n_acts, nu, 3))
-        self.plan_time = seg("plan_time_shm", (1,))
+        try:
+            self.time = seg("time_shm", (1,))
+            self.state = seg("state_shm", (nx,))
+            self.acts = seg("acts_shm", (n_acts, nu))
+            self.tau = seg("tau_shm", (n_acts, nu))
+            self.refs = seg("refs_shm", (n_acts, nu, 3))
+            self.plan_time = seg("plan_time_shm", (1,))
+        except BaseException:
+            self.close()
+            raise
 
     def close(self):
         for s in self._segs:

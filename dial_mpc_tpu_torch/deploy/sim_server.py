@@ -60,12 +60,16 @@ class DialSimConfig:
 
 
 class DialSim:
+    """The sim server; it creates the bus. ``bus_prefix`` prefixes the bus's
+    segment names (``shm.ShmBus``), empty by default as the planner's is."""
+
     def __init__(
         self,
         sim_config: DialSimConfig,
         env_config: BaseEnvConfig,
         dial_config: DialConfig,
         max_steps: int | None = None,
+        bus_prefix: str = "",
     ):
         self.cfg = sim_config
         self.record = sim_config.record
@@ -92,7 +96,7 @@ class DialSim:
         self._plot = None
 
         nx = self.mj_model.nq + self.mj_model.nv
-        self.bus = ShmBus(nx, self.mj_model.nu, self.n_acts, create=True)
+        self.bus = ShmBus(nx, self.mj_model.nu, self.n_acts, create=True, prefix=bus_prefix)
         self.bus.time[0] = 0.0
         self.bus.state[: self.mj_model.nq] = self.mj_data.qpos
         self.bus.state[self.mj_model.nq :] = self.mj_data.qvel

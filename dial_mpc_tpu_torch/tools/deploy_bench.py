@@ -5,7 +5,8 @@ on the shm bus.
 
 Runs ``deploy.planner_proc.MBDPublisher.main_loop`` for ``ticks`` + 1 ticks
 (default: unitree_go2_seq_jump_deploy, 300, the YAML's Nsample) on a bus this
-script creates and seeds with the home keyframe, float32 on the card. The sim
+script creates under segment names of its own (``shm.run_prefix``) and seeds
+with the home keyframe, float32 on the card. The sim
 host is replaced by that static state: a tick's cost does not depend on the
 state's values, and the loop reads state and clock afresh every tick either
 way. The first tick (Ndiffuse_init levels, the kernel's build) is left out of
@@ -33,7 +34,7 @@ import yaml
 import dial_mpc_tpu_torch.envs as dial_envs
 from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.deploy.planner_proc import MBDPublisher
-from dial_mpc_tpu_torch.deploy.shm import ShmBus
+from dial_mpc_tpu_torch.deploy.shm import ShmBus, run_prefix
 from dial_mpc_tpu_torch.physics import engine_cuda
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
 
@@ -60,11 +61,12 @@ def load_example(example, device="cuda", dtype=torch.float32, nsample=None):
     return config_dict, dial_config, env_config, env
 
 
-def static_bus(env, dial_config) -> ShmBus:
-    """A bus created here (the actuation side's role), holding the home
-    keyframe at rest and the clock at 0."""
+def static_bus(env, dial_config, prefix) -> ShmBus:
+    """A bus created here (the actuation side's role) under segment names
+    that start with ``prefix``, holding the home keyframe at rest and the
+    clock at 0. Segments of those names that exist already are refused."""
     mj = env.mj_model
-    bus = ShmBus(mj.nq + mj.nv, mj.nu, dial_config.Hsample + 1, create=True)
+    bus = ShmBus(mj.nq + mj.nv, mj.nu, dial_config.Hsample + 1, create=True, prefix=prefix, reclaim=False)
     bus.state[:] = 0.0
     bus.state[: mj.nq] = mj.keyframe_qpos("home")
     return bus
@@ -129,9 +131,10 @@ def tick_stats(pub: MBDPublisher, spans: list) -> dict:
 
 def bench(example, ticks, nsample=None):
     _, dial_config, env_config, env = load_example(example, nsample=nsample)
-    bus = static_bus(env, dial_config)
+    prefix = run_prefix()
+    bus = static_bus(env, dial_config, prefix)
     try:
-        pub = MBDPublisher(env, env_config, dial_config)
+        pub = MBDPublisher(env, env_config, dial_config, bus_prefix=prefix)
         try:
             spans = record_device_spans(pub)
             launches0 = engine_cuda.step_core.launches

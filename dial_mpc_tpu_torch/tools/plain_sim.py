@@ -1,10 +1,14 @@
 """A plain-physics actuation side for the deploy planner, where there is no
 ``mujoco``.
 
-    python -m dial_mpc_tpu_torch.tools.plain_sim --example unitree_go2_trot_deploy --out states.npz
+    python -m dial_mpc_tpu_torch.tools.plain_sim --example unitree_go2_trot_deploy --out states.npz \
+        --bus-prefix P
 
-It creates the shm bus as ``deploy/sim_server.py`` does and follows its
-sync-mode rule (``DialSim.main_loop``): step while t <= plan_time + ctrl_dt
+It creates the shm bus as ``deploy/sim_server.py`` does, under the segment
+names ``--bus-prefix`` gives (the planner attaches with the same prefix; a
+run makes one with ``deploy.shm.run_prefix``), and refuses segments that
+already exist. It follows the sim server's sync-mode rule
+(``DialSim.main_loop``): step while t <= plan_time + ctrl_dt
 under the first planned torques (the compiled scenes' actuators are motors),
 publishing [qpos, qvel] and the clock after every step, then wait for the
 next plan. The physics is this package's
@@ -53,7 +57,7 @@ def plain_scene(config_dict):
     return mj, put_model(mj, device="cpu", dtype=F64), dial_config, sim_config, env_config.dt
 
 
-def run(config_dict, out_path):
+def run(config_dict, out_path, bus_prefix):
     torch.set_num_threads(1)  # batch one: more threads only add overhead
     mj, m, dial_config, sim_config, ctrl_dt = plain_scene(config_dict)
     if sim_config.sim_leg_control != "torque":
@@ -63,7 +67,7 @@ def run(config_dict, out_path):
 
     stop = []
     signal.signal(signal.SIGTERM, lambda *_: stop.append(True))
-    bus = ShmBus(mj.nq + mj.nv, mj.nu, n_acts, create=True)
+    bus = ShmBus(mj.nq + mj.nv, mj.nu, n_acts, create=True, prefix=bus_prefix, reclaim=False)
     t, rows = 0.0, []
     try:
         bus.time[0] = 0.0
@@ -95,10 +99,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--example", type=str, required=True)
     ap.add_argument("--out", type=str, required=True, help=".npz of every step's (t, qpos, qvel, ctrl)")
+    ap.add_argument("--bus-prefix", type=str, required=True, help="prefix of the bus's segment names")
     args = ap.parse_args(argv)
     with open(get_example_path(args.example + ".yaml")) as f:
         config_dict = yaml.safe_load(f)
-    steps = run(config_dict, args.out)
+    steps = run(config_dict, args.out, args.bus_prefix)
     print(f"PLAIN_SIM_DONE steps={steps}", flush=True)
 
 

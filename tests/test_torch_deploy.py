@@ -6,9 +6,13 @@ draws injected, the state injection, the checkpoint, a sync-mode sim2sim run
 over the real bus, the launchers, the seq-jump viewer overlay, the
 localization registry and the real-robot host's refusal without its SDK.
 
-CPU only (``device="cpu"``), float64 unless said otherwise. The segments of
-the bus have fixed names, so these tests, like tests/test_deploy.py, must not
-run beside another process that uses the bus.
+CPU only (``device="cpu"``), float64 unless said otherwise. The port's own
+buses have segment names of this run (``shm.run_prefix``), created with
+``reclaim=False``: no other run's bus is met or taken over. Where the JAX
+package's bus or publisher takes part (the interop cases, the publisher
+against the JAX one) the names are the fixed ones, which the JAX bus alone
+knows; there a port creator refuses segments that exist, so a run of
+tests/test_deploy.py beside this one makes those tests fail, never cross.
 
 Run with:  python -m pytest tests/test_torch_deploy.py -q
 """
@@ -35,7 +39,7 @@ from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.deploy import planner_proc
 from dial_mpc_tpu_torch.deploy.planner_proc import MBDPublisher
-from dial_mpc_tpu_torch.deploy.shm import ShmBus
+from dial_mpc_tpu_torch.deploy.shm import ShmBus, run_prefix
 from dial_mpc_tpu_torch.physics import engine_cuda, solver_cuda
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
 
@@ -44,6 +48,7 @@ F64 = torch.float64
 SEGMENTS = ("time", "state", "acts", "tau", "refs", "plan_time")
 # the small planner of tests/test_deploy.py on the trot deploy example
 SMALL = dict(Nsample=8, Hsample=16, Hnode=4, Ndiffuse=1, Ndiffuse_init=2)
+PREFIX = run_prefix()  # the segment names of this run's own buses
 
 
 def _deploy_config(example="unitree_go2_trot_deploy", **overrides):
@@ -60,9 +65,9 @@ def _port(cfgd, dtype=F64):
     return cfg, env_cfg, torch_envs.get_environment(cfg.env_name, env_cfg, device="cpu", dtype=dtype)
 
 
-def _bus_for(env, cfg):
+def _bus_for(env, cfg, prefix=PREFIX):
     mj = env.mj_model
-    return ShmBus(mj.nq + mj.nv, mj.nu, cfg.Hsample + 1, create=True)
+    return ShmBus(mj.nq + mj.nv, mj.nu, cfg.Hsample + 1, create=True, prefix=prefix, reclaim=False)
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +79,8 @@ def test_shm_bus_roundtrip_and_interop(maker, attacher):
     """Either package's bus attaches to the other's segments, and what one
     side writes the other reads, segment by segment, both ways."""
     cls = {"torch": ShmBus, "jax": JaxShmBus}
-    bus = cls[maker](nx=37, nu=12, n_acts=17, create=True)
+    refuse = {"reclaim": False} if maker == "torch" else {}
+    bus = cls[maker](nx=37, nu=12, n_acts=17, create=True, **refuse)
     try:
         attached = cls[attacher](nx=37, nu=12, n_acts=17, create=False)
         try:
@@ -97,17 +103,49 @@ def test_shm_bus_roundtrip_and_interop(maker, attacher):
 
 def test_shm_bus_reclaims_leaked_segments():
     """A creator finding segments a crashed producer left behind replaces them."""
-    leaked = JaxShmBus(nx=5, nu=2, n_acts=3, create=True)
+    leaked = ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=PREFIX)
     leaked.acts[:] = 7.0
-    bus = ShmBus(nx=5, nu=2, n_acts=3, create=True)
+    for s in leaked._segs:  # the producer crashed: closed, never unlinked
+        s.close()
+    bus = ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=PREFIX)
     try:
-        attached = ShmBus(nx=5, nu=2, n_acts=3, create=False)
+        attached = ShmBus(nx=5, nu=2, n_acts=3, create=False, prefix=PREFIX)
         assert (attached.acts == 0.0).all()
         attached.close()
     finally:
         bus.close()
-        for s in leaked._segs:
-            s.close()
+
+
+def test_shm_bus_refuses_live_segments_without_reclaim():
+    """With reclaim=False a creator meeting another bus's segments raises and
+    leaves that bus as it was; one meeting a single later segment unlinks the
+    segments it had made before raising; a bus of another prefix is a bus of
+    its own."""
+    from multiprocessing import shared_memory
+
+    live = ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=PREFIX)
+    try:
+        live.acts[:] = 7.0
+        with pytest.raises(FileExistsError):
+            ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=PREFIX, reclaim=False)
+        assert (live.acts == 7.0).all()
+        other = ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=run_prefix(), reclaim=False)
+        try:
+            assert (other.acts == 0.0).all() and (live.acts == 7.0).all()
+        finally:
+            other.close()
+    finally:
+        live.close()
+    planted = shared_memory.SharedMemory(name=PREFIX + "acts_shm", create=True, size=24)
+    try:
+        with pytest.raises(FileExistsError):
+            ShmBus(nx=5, nu=2, n_acts=3, create=True, prefix=PREFIX, reclaim=False)
+        for name in ("time_shm", "state_shm"):  # made before acts_shm was met
+            with pytest.raises(FileNotFoundError):
+                shared_memory.SharedMemory(name=PREFIX + name)
+    finally:
+        planted.close()
+        planted.unlink()
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +225,7 @@ def schedule_runs():
     jcfg, jenv_cfg, jenv = _jax_side(cfgd)
     states = _measured_states(env, len(SCHEDULE))
     draws = _jax_tick_draws(cfg, env.action_size)
-    bus = _bus_for(env, cfg)
+    bus = _bus_for(env, cfg, prefix="")  # the JAX publisher knows the fixed names only
     try:
         jpub = JaxMBDPublisher(jenv, jenv_cfg, jcfg)
 
@@ -317,7 +355,7 @@ def small_publisher():
     made = []
 
     def make(**kw):
-        made.append(MBDPublisher(env, env_cfg, cfg, **kw))
+        made.append(MBDPublisher(env, env_cfg, cfg, bus_prefix=PREFIX, **kw))
         return made[-1]
 
     try:
@@ -406,7 +444,7 @@ def test_deploy_examples_run_a_tick(example):
     bus = _bus_for(env, cfg)
     try:
         bus.state[: env.mj_model.nq] = env.mj_model.keyframe_qpos("home")
-        pub = MBDPublisher(env, env_cfg, cfg)
+        pub = MBDPublisher(env, env_cfg, cfg, bus_prefix=PREFIX)
         try:
             pub.main_loop(max_iters=1, verbose=False)
             assert np.isfinite(bus.tau).all() and np.abs(bus.tau).max() > 0 and bus.plan_time[0] == 0.0
@@ -434,6 +472,7 @@ sim = DialSim(
     BaseEnvConfig(dt=0.02, timestep=0.02),
     DialConfig(Hsample=16),
     max_steps=20,
+    bus_prefix={prefix!r},
 )
 try:
     sim.main_loop()
@@ -448,18 +487,18 @@ def test_sim2sim_sync_integration():
     port's publisher on the CPU over the real bus, held to what
     tests/test_deploy.py holds the JAX package to."""
     proc = subprocess.Popen(
-        [sys.executable, "-u", "-c", SIM_SCRIPT.format(repo=ROOT)],
+        [sys.executable, "-u", "-c", SIM_SCRIPT.format(repo=ROOT, prefix=PREFIX)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     try:
         try:
-            ShmBus(nx=37, nu=12, n_acts=17, create=False, attach_timeout=60.0).close()
+            ShmBus(nx=37, nu=12, n_acts=17, create=False, attach_timeout=60.0, prefix=PREFIX).close()
         except FileNotFoundError:
             proc.kill()
             out, _ = proc.communicate(timeout=30)
             raise AssertionError(f"sim server never created the shm bus:\n{out[-3000:]}")
         cfg, env_cfg, env = _port(_deploy_config(**SMALL, kd=0.0))
-        pub = MBDPublisher(env, env_cfg, cfg)
+        pub = MBDPublisher(env, env_cfg, cfg, bus_prefix=PREFIX)
         try:
             pub.main_loop(max_iters=60, verbose=False)
             t_sim = float(pub.bus.time[0])
@@ -522,7 +561,7 @@ def test_seq_jump_viewer_overlay_draws_the_contact_targets():
     env_cfg = load_dataclass_from_dict(torch_envs.get_config(dial_cfg.env_name), cfgd, convert_list_to_array=True)
     sim_cfg = load_dataclass_from_dict(DialSimConfig, cfgd)
     sim_cfg.headless = True
-    sim = DialSim(sim_cfg, env_cfg, dial_cfg, max_steps=1)
+    sim = DialSim(sim_cfg, env_cfg, dial_cfg, max_steps=1, bus_prefix=PREFIX)
     try:
         scene = mujoco.MjvScene(sim.mj_model, maxgeom=1000)
         sim.viewer = types.SimpleNamespace(user_scn=scene)
