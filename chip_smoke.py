@@ -52,15 +52,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
      on the CPU, float64, in a subprocess) in the sim server's place. Each
      bus has segment names of its own run (shm.run_prefix), so that no other
      run's bus on the host is met or taken over;
-  6. the kernels' times beside their bounds.
+  6. the sample-sharded planner (dial_mpc_tpu_torch.parallel.ShardedMBDPI) at
+     the trot YAML's width, float32: (a) a group of one on NCCL, built as
+     the JAX package's bench.py metric 2 builds it, for SHARDED_STEPS control
+     steps (E's launches checked, the trajectory held to phase 4's trot run,
+     the collectives a level counted and their device time traced); (b) two
+     ranks sharing the card over gloo, two processes of this script (1024
+     samples a rank, E at B = 1025), each driving runner.run and the deploy
+     planner (MBDPublisher) with sharding "mesh": both build ShardedMBDPI,
+     rank 0 alone writes the artifacts and attaches a bus of this run, the
+     ranks agree bit for bit and follow (a)'s trajectory and predicted body
+     positions; (c) runner.run with sharding "mesh" in the group of one (it
+     builds MBDPI, and where mujoco is not installed writes the states and
+     no viewer); (d) tools/glue_profile.py's three times;
+  7. the kernels' times beside their bounds.
 The last line is {"ok": true, "device": {...}}. With --compare-only the
 script stops after phase 3 and prints no such line.
 """
 
 import argparse
 import concurrent.futures
+import importlib.util
 import json
 import os
+import pickle
 import shutil
 import signal
 import subprocess
@@ -80,12 +95,13 @@ from dial_mpc_tpu_torch.core import runner
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.deploy.planner_proc import MBDPublisher
 from dial_mpc_tpu_torch.deploy.shm import run_prefix
+from dial_mpc_tpu_torch.parallel import ShardedMBDPI, global_sample_mesh, init_distributed
 from dial_mpc_tpu_torch.physics import (
     cuda_build, engine_cuda, forward, make_data, maths, put_model, solver, solver_cuda,
 )
 from dial_mpc_tpu_torch.physics.constraint import elliptic_groups
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
-from dial_mpc_tpu_torch.tools import deploy_bench, solver_cases
+from dial_mpc_tpu_torch.tools import deploy_bench, glue_profile, solver_cases
 from dial_mpc_tpu_torch.tools.float_checks import (
     MAX_FLIPPED, REFERENCE_DEPARTS, TOL_SYNTHETIC, contact_rich_batch, departing, listed_limits, solve_limits,
     step_limits,
@@ -223,11 +239,13 @@ def cuda_ms(fn, n):
 
 
 def path_batches():
-    """scene -> the batches other than B_FULL that the paths of phases 4 and
-    5 give the step kernel there (Nsample + 1 of each YAML, and of the
-    Allegro gate's width)."""
+    """scene -> the batches other than B_FULL that the paths of phases 4-6
+    give the step kernel there (Nsample + 1 of each YAML, of the Allegro
+    gate's width, and of a rank's share on phase 6's gloo group)."""
     runs = [(e, None) for e in PATH_EXAMPLES + tuple(DEPLOY_WIDTHS)]
     runs.append(("allegro_reorient", ALLEGRO_GATE_NSAMPLE))
+    # a rank's share of the samples on phase 6's gloo group
+    runs.append((SHARDED_EXAMPLE, WIDTHS[SHARDED_EXAMPLE]["Nsample"] // SHARDED_GLOO_RANKS))
     batches = {}
     for example, nsample in runs:
         with open(get_example_path(example + ".yaml")) as f:
@@ -693,6 +711,20 @@ WIDTHS = {
 }
 
 
+# Same seed, same draws, the same arithmetic up to float32 rounding (which the
+# softmax over rewards amplifies): a run too short to show the walk must
+# retrace another route's (or planner's) first steps. 0.02 (rad, m) is far
+# below what a different plan would give.
+SAME_AS_TOL = 0.02
+
+
+def env_steps(cfg, n_steps):
+    """Env steps of n_steps control steps: one advance each, Hsample + 1 a
+    level, Ndiffuse_init levels the first step and Ndiffuse the others."""
+    per_level = cfg["Hsample"] + 1
+    return n_steps + per_level * (cfg["Ndiffuse_init"] + cfg["Ndiffuse"] * (n_steps - 1))
+
+
 def phase_path(example, engine, n_steps, same_as=None, overrides=None):
     """One path through runner.run at the shipped width (or with the config's
     ``overrides``), float32. Both launch counts are set to 0 just before and
@@ -720,9 +752,8 @@ def phase_path(example, engine, n_steps, same_as=None, overrides=None):
     launches = {"engine_step": engine_cuda.step_core.launches,
                 "solver_newton": solver_cuda.solve_batched.launches}
 
-    # env steps: one advance per control step, Hsample + 1 per annealing level
     per_level = cfg["Hsample"] + 1
-    expected = n_steps + per_level * (cfg["Ndiffuse_init"] + cfg["Ndiffuse"] * (n_steps - 1))
+    expected = env_steps(cfg, n_steps)
     if engine == "fused":
         mine, want = "engine_step", {"engine_step": expected, "solver_newton": 1}
     else:
@@ -730,6 +761,7 @@ def phase_path(example, engine, n_steps, same_as=None, overrides=None):
     require(launches == want, f"{example}/{engine}: launches {launches} != {want}")
 
     states = np.load(summary["states_path"])
+    artifacts = sorted(os.listdir(out_dir))
     shutil.rmtree(out_dir)
     final = summary["state"]
     nq, nv, nu = (final.pipeline_state.qpos.shape[1], final.pipeline_state.qvel.shape[1],
@@ -771,13 +803,9 @@ def phase_path(example, engine, n_steps, same_as=None, overrides=None):
         if n_steps >= 50:
             require(advance > 0.05, f"base x advanced only {advance:.3f} m")
         if same_as is not None:
-            # Same seed, same draws, the same arithmetic up to float32 rounding
-            # (which the softmax over rewards amplifies): a run too short to
-            # show the walk must retrace the other route's first steps. 0.02
-            # (rad, m) is far below what a different plan would give.
             n = min(n_steps, same_as.shape[0])
             extra["max_qpos_diff_to_other_route"] = float(np.abs(qpos[:n] - same_as[:n]).max())
-            require(extra["max_qpos_diff_to_other_route"] <= 0.02,
+            require(extra["max_qpos_diff_to_other_route"] <= SAME_AS_TOL,
                     f"the routes part by {extra['max_qpos_diff_to_other_route']:.3e}")
     elif example == "unitree_go2_seq_jump":  # alive, and the stage clock advances every jump_dt / dt steps
         require(qpos[:, 2].min() > 0.1, f"base fell to {qpos[:, 2].min():.3f} m")
@@ -807,10 +835,11 @@ def phase_path(example, engine, n_steps, same_as=None, overrides=None):
         first_step_ms=1e3 / summary["freqs"][0], control_step_ms_median=step_ms[len(step_ms) // 2],
         control_step_ms_p90=step_ms[int(len(step_ms) * 0.9)], mean_reward=summary["mean_reward"],
         base_x_final=float(qpos[-1, 0]), base_x_advance=advance, base_z_min=float(qpos[:, 2].min()),
-        wall_s=wall, **guards, **extra,
+        wall_s=wall, **guards, **extra, planner=summary["planner"], artifacts=artifacts,
     )
     return dict(launches=launches[mine], step_ms=step_ms[len(step_ms) // 2],
-                p90_ms=step_ms[int(len(step_ms) * 0.9)], first_ms=1e3 / summary["freqs"][0], qpos=qpos)
+                p90_ms=step_ms[int(len(step_ms) * 0.9)], first_ms=1e3 / summary["freqs"][0], qpos=qpos,
+                planner=summary["planner"], artifacts=artifacts)
 
 
 DEPLOY_WIDTHS = {
@@ -941,6 +970,266 @@ def phase_deploy_closed_loop(n_ticks):
     return dict(launches=run["launches"]["engine_step"], **gate)
 
 
+SHARDED_EXAMPLE = "unitree_go2_trot"
+SHARDED_STEPS = 20  # control steps of the group of one
+SHARDED_GLOO_RANKS = 2  # ranks sharing the one card over gloo (NCCL refuses two ranks on a device)
+SHARDED_GLOO_STEPS = 10  # the runner's control steps in those ranks
+SHARDED_DEPLOY_EXAMPLE = "unitree_go2_trot_deploy"
+SHARDED_DEPLOY_TICKS = 5  # the deploy planner's ticks in those ranks
+
+
+def sharded_trot(n_steps):
+    """n_steps control steps of ShardedMBDPI over the started group, built as
+    the JAX package's bench.py metric 2 builds its one-device mesh: the trot
+    YAML's width, float32, the generator seeded from the YAML, env.reset on
+    it, a zero plan, the first step Ndiffuse_init levels. Each step reads
+    back the qpos and the plan's predicted body positions (xbar), as the
+    runner's artifacts hold them. Both launch counts are set to 0 just
+    before and read just after."""
+    from dial_mpc_tpu_torch.core.dial_config import DialConfig
+    from dial_mpc_tpu_torch.utils.io_utils import load_dataclass_from_dict
+
+    with open(get_example_path(SHARDED_EXAMPLE + ".yaml")) as f:
+        cfgd = yaml.safe_load(f)
+    width = {k: cfgd[k] for k in WIDTHS[SHARDED_EXAMPLE]}
+    require(width == WIDTHS[SHARDED_EXAMPLE], width)
+    cfg = load_dataclass_from_dict(DialConfig, cfgd)
+    env_cfg = load_dataclass_from_dict(dial_envs.get_config(cfg.env_name), cfgd, convert_list_to_array=True,
+                                       device=DEVICE)
+    env = dial_envs.get_environment(cfg.env_name, env_cfg, device=DEVICE, dtype=torch.float32)
+    generator = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    planner = ShardedMBDPI(cfg, env, global_sample_mesh(), generator)
+
+    engine_cuda.step_core.launches = 0
+    solver_cuda.solve_batched.launches = 0
+    state = env.reset(generator)
+    Y = torch.zeros(cfg.Hnode + 1, planner.nu, device=DEVICE)
+    nq = env.mj_model.nq
+    qpos, xbar, step_ms = [], [], []
+    for t in range(n_steps):
+        t0 = time.time()
+        state, Y, info = planner.control_step(state, Y, cfg.Ndiffuse_init if t == 0 else cfg.Ndiffuse)
+        row = torch.cat([state.pipeline_state.qpos[0], info["xbar"][-1].reshape(-1)]).cpu().numpy()
+        step_ms.append((time.time() - t0) * 1e3)
+        qpos.append(row[:nq])
+        xbar.append(row[nq:].reshape(info["xbar"].shape[1:]))
+    launches = {"engine_step": engine_cuda.step_core.launches, "solver_newton": solver_cuda.solve_batched.launches}
+    want = {"engine_step": env_steps(cfgd, n_steps), "solver_newton": 1}
+    require(launches == want, f"ShardedMBDPI: launches {launches} != {want}")
+    qpos, xbar = np.stack(qpos), np.stack(xbar)
+    require(np.isfinite(qpos).all() and np.isfinite(xbar).all(), "the sharded planner's run is not finite")
+    levels = cfg.Ndiffuse_init + cfg.Ndiffuse * (n_steps - 1)
+    return dict(planner=planner, state=state, Y=Y, launches=launches, want=want, levels=levels, qpos=qpos,
+                xbar=xbar, step_ms=step_ms)
+
+
+def sharded_rank(rank, store):
+    """One rank of phase 6 (b), a process of this script. It joins a gloo
+    group of SHARDED_GLOO_RANKS ranks on card 0 and drives both entry points
+    with sharding "mesh": runner.run on the trot YAML for SHARDED_GLOO_STEPS
+    steps (into a directory of its own), then the deploy planner for
+    SHARDED_DEPLOY_TICKS ticks on a static bus that rank 0 creates under a
+    prefix of this run. Both launch counts are set to 0 just before each and
+    read just after (deploy_run checks the ticks'). What the rank saw goes
+    to ``store``/rank<R>.pkl."""
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(store, 'gloo')}", world_size=SHARDED_GLOO_RANKS, rank=rank)
+    try:
+        with open(get_example_path(SHARDED_EXAMPLE + ".yaml")) as f:
+            cfgd = yaml.safe_load(f)
+        out_dir = os.path.join(store, f"out{rank}")
+        cfgd.update(n_steps=SHARDED_GLOO_STEPS, output_dir=out_dir, sharding="mesh")
+        engine_cuda.step_core.launches = 0
+        solver_cuda.solve_batched.launches = 0
+        summary = runner.run(cfgd, progress=False, device=DEVICE, dtype=torch.float32)
+        final = summary["state"].pipeline_state
+        seen = dict(
+            planner=summary["planner"],
+            launches={"engine_step": engine_cuda.step_core.launches,
+                      "solver_newton": solver_cuda.solve_batched.launches},
+            rews=np.array(summary["rews"]), rews_plan=np.array(summary["rews_plan"]),
+            qpos=final.qpos.cpu().numpy(), qvel=final.qvel.cpu().numpy(), step_ms=1e3 / np.array(summary["freqs"]),
+            artifacts=sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else [],
+        )
+        if summary["states_path"] is not None:
+            seen.update(states=np.load(summary["states_path"]), predictions=np.load(summary["predictions_path"]))
+
+        _, cfg, env_cfg, env = deploy_bench.load_example(SHARDED_DEPLOY_EXAMPLE)
+        prefix = run_prefix()
+        bus = deploy_bench.static_bus(env, cfg, prefix) if rank == 0 else None
+        try:
+            pub = MBDPublisher(env, env_cfg, cfg, sharding="mesh", bus_prefix=prefix)
+            try:
+                tick = deploy_run(SHARDED_DEPLOY_EXAMPLE, pub, SHARDED_DEPLOY_TICKS)
+                levels = cfg.Ndiffuse_init + cfg.Ndiffuse * (SHARDED_DEPLOY_TICKS - 1)
+                seen.update(
+                    pub_planner=type(pub.mbdpi).__name__, attached=pub.bus is not None, Y=pub.Y.cpu().numpy(),
+                    generator=pub.generator.get_state().numpy(), tick_launches=tick["launches"],
+                    tick_collectives_per_level=pub.mbdpi.collectives / levels, tick_ms_p50=pub.last_latency["p50_ms"],
+                    published=check_published(SHARDED_DEPLOY_EXAMPLE, pub) if pub.bus is not None else {},
+                )
+            finally:
+                pub.close()
+        finally:
+            if bus is not None:
+                bus.close()
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(store, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(seen, f)
+
+
+def nccl_trace(planner, state, Y, n_steps):
+    """n_steps control steps traced: the NCCL kernels (count, device ms) and
+    the device's busy ms, a step each; and the host time of one all_reduce
+    of a level's largest packed tensor, alone."""
+    nd = planner.args.Ndiffuse
+    x = torch.zeros(3 + planner.args.Nsample, device=DEVICE)
+    for _ in range(10):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    all_reduce_us = (time.perf_counter() - t0) / 200 * 1e6
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_steps):
+            state, Y, _ = planner.control_step(state, Y, nd)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    levels = n_steps * nd
+    return dict(nccl_kernels_per_level=sum(e.count for e in nccl) / levels,
+                nccl_device_ms_per_level=sum(dev_us(e) for e in nccl) / 1e3 / levels,
+                nccl_kernel_names=sorted({e.key[:60] for e in nccl}), all_reduce_host_us=all_reduce_us,
+                device_busy_ms_per_step=sum(dev_us(e) for e in kernels) / 1e3 / n_steps)
+
+
+def step_stats(step_ms):
+    """Median and p90 of the steps after the first (which runs Ndiffuse_init
+    levels), and the first."""
+    ms = sorted(step_ms[1:])
+    return dict(step_ms=float(ms[len(ms) // 2]), p90_ms=float(ms[int(len(ms) * 0.9)]), first_ms=float(step_ms[0]))
+
+
+def phase_sharded(trot):
+    """Phase 6: the sample-sharded planner at the trot YAML's width; ``trot``
+    is phase 4's fused trot run. Returns the records of the paths and of the
+    deploy ticks for the kernels line, and the glue profile."""
+    paths, deploy = {}, {}
+    has_mujoco = importlib.util.find_spec("mujoco") is not None
+    store = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # (a) a group of one on NCCL (the JAX package's one-device mesh)
+        t0 = time.time()
+        init_distributed(f"file://{os.path.join(store, 'nccl')}", 1, 0, device=DEVICE)
+        try:
+            require(torch.distributed.get_backend() == "nccl", torch.distributed.get_backend())
+            a = sharded_trot(SHARDED_STEPS)
+            per_level = a["planner"].collectives / a["levels"]
+            require(per_level == 4, f"{per_level} collectives a level, not 4")
+            n = min(SHARDED_STEPS, trot["qpos"].shape[0])
+            diff = float(np.abs(a["qpos"][:n] - trot["qpos"][:n]).max())
+            require(diff <= SAME_AS_TOL, f"the sharded trot parts from phase 4's by {diff:.3e}")
+            trace = nccl_trace(a["planner"], a["state"], a["Y"], 3)
+            paths["trot_sharded_world1_nccl"] = dict(launches=a["launches"]["engine_step"], **step_stats(a["step_ms"]))
+            s = paths["trot_sharded_world1_nccl"]
+            emit("sharded_group_of_one", ok=True, backend="nccl", world=1, n_steps=SHARDED_STEPS,
+                 **WIDTHS[SHARDED_EXAMPLE], dtype="float32", launches=a["launches"], launches_expected=a["want"],
+                 collectives_per_level=per_level, max_qpos_diff_to_phase4_trot=diff, tolerance=SAME_AS_TOL,
+                 first_step_ms=s["first_ms"], control_step_ms_median=s["step_ms"], control_step_ms_p90=s["p90_ms"],
+                 phase4_trot_control_step_ms_median=trot["step_ms"], base_z_min=float(a["qpos"][:, 2].min()),
+                 **trace, seconds=time.time() - t0)
+
+            # (c) the runner's mesh branch in this group of one: MBDPI, and
+            # the viewer only where mujoco is installed
+            t0 = time.time()
+            c = phase_path(SHARDED_EXAMPLE, "fused", 3, overrides={"sharding": "mesh"})
+            require(c["planner"] == "MBDPI", f"the runner built {c['planner']} in a group of one")
+            npy = [n for n in c["artifacts"] if n.endswith(".npy")]
+            html = [n for n in c["artifacts"] if n.endswith(".html")]
+            require(len(npy) == 2 and len(html) == int(has_mujoco), f"artifacts {c['artifacts']}")
+            emit("sharded_runner_mesh", ok=True, world=1, planner=c["planner"], artifacts=c["artifacts"],
+                 mujoco_installed=has_mujoco, seconds=time.time() - t0)
+            paths["trot_runner_mesh_world1"] = c
+        finally:
+            torch.distributed.destroy_process_group()
+
+        # (b) two ranks on the one card over gloo, each a process of this
+        # script: the runner and the deploy planner with sharding "mesh"
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", str(rank),
+                                   "--sharded-store", store],
+                                  cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for rank in range(SHARDED_GLOO_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0, f"gloo rank {rank} failed: {log[-3000:]}")
+        ranks = []
+        for rank in range(SHARDED_GLOO_RANKS):
+            with open(os.path.join(store, f"rank{rank}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        want = {"engine_step": env_steps(WIDTHS[SHARDED_EXAMPLE], SHARDED_GLOO_STEPS), "solver_newton": 1}
+        for rank, r in enumerate(ranks):
+            require(r["planner"] == "ShardedMBDPI" and r["pub_planner"] == "ShardedMBDPI",
+                    f"gloo rank {rank}: the runner built {r['planner']}, the deploy planner {r['pub_planner']}")
+            require(r["launches"] == want, f"gloo rank {rank}: the runner's launches {r['launches']} != {want}")
+            require(r["tick_collectives_per_level"] == 4,
+                    f"gloo rank {rank}: {r['tick_collectives_per_level']} collectives a level of a tick, not 4")
+        require([r["attached"] for r in ranks] == [rank == 0 for rank in range(SHARDED_GLOO_RANKS)],
+                "a rank other than 0 attached the bus, or rank 0 did not")
+        lead = ranks[0]
+        require(sum(n.endswith(".npy") for n in lead["artifacts"]) == 2
+                and sum(n.endswith(".html") for n in lead["artifacts"]) == int(has_mujoco),
+                f"rank 0's artifacts {lead['artifacts']}")
+        require(all(r["artifacts"] == [] for r in ranks[1:]), "a rank other than 0 wrote artifacts")
+        for k in ("rews", "rews_plan", "qpos", "qvel", "Y", "generator"):
+            require(all(np.array_equal(r[k], lead[k]) for r in ranks), f"the gloo ranks' {k} differ")
+        nq = a["qpos"].shape[1]
+        n = min(SHARDED_GLOO_STEPS, SHARDED_STEPS)
+        diffs = dict(qpos=float(np.abs(lead["states"][:n, 1 : 1 + nq] - a["qpos"][:n]).max()),
+                     xbar=float(np.abs(lead["predictions"][:n] - a["xbar"][:n]).max()))
+        require(max(diffs.values()) <= SAME_AS_TOL, f"the gloo ranks part from the group of one: {diffs}")
+        paths["trot_runner_sharded_world2_gloo"] = dict(launches=lead["launches"]["engine_step"],
+                                                        **step_stats(lead["step_ms"]))
+        deploy[f"{SHARDED_DEPLOY_EXAMPLE}, sharded world 2 gloo"] = dict(launches=lead["tick_launches"]["engine_step"])
+        s = paths["trot_runner_sharded_world2_gloo"]
+        emit("sharded_two_ranks", ok=True, backend="gloo", world=SHARDED_GLOO_RANKS, n_steps=SHARDED_GLOO_STEPS,
+             **WIDTHS[SHARDED_EXAMPLE], samples_per_rank=WIDTHS[SHARDED_EXAMPLE]["Nsample"] // SHARDED_GLOO_RANKS,
+             dtype="float32", planner=lead["planner"], launches_per_rank=lead["launches"], launches_expected=want,
+             ranks_bit_equal=True, artifacts_by_rank=[r["artifacts"] for r in ranks],
+             max_diff_to_group_of_one=diffs, tolerance=SAME_AS_TOL, first_step_ms=s["first_ms"],
+             control_step_ms_median=s["step_ms"], control_step_ms_p90=s["p90_ms"],
+             rank1_control_step_ms_median=step_stats(ranks[1]["step_ms"])["step_ms"],
+             deploy_example=SHARDED_DEPLOY_EXAMPLE, deploy_ticks=SHARDED_DEPLOY_TICKS,
+             deploy_launches_per_rank=lead["tick_launches"],
+             deploy_collectives_per_level=lead["tick_collectives_per_level"],
+             deploy_tick_host_ms_p50=lead["tick_ms_p50"], deploy_attached_by_rank=[r["attached"] for r in ranks],
+             **lead["published"], seconds=time.time() - t0)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (d) the glue profiler at trot width
+    t0 = time.time()
+    glue = glue_profile.profile(SHARDED_EXAMPLE, DEVICE, trials=5)
+    emit("glue_profile", ok=True, **glue, seconds=time.time() - t0)
+    return paths, deploy, glue
+
+
 def build_all(models):
     """Phase 2: every library of the paths below, all nvcc runs started
     together: the step kernel and the solver kernel for each scene, and the
@@ -993,7 +1282,13 @@ def main():
                     help="control steps of Allegro in-hand reorientation, fused route")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
+    # one rank of phase 6 (b); the script starts these itself
+    ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-store", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        sharded_rank(args.sharded_rank, args.sharded_store)
+        return
     t_start = time.time()
 
     smi = sh("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
@@ -1050,6 +1345,9 @@ def main():
     fused = {k: v for k, v in paths.items() if k != "trot_unfused"}
     deploy = {example: phase_deploy_ticks(example, DEPLOY_TICKS) for example in DEPLOY_WIDTHS}
     deploy["unitree_go2_trot_deploy, closed loop"] = phase_deploy_closed_loop(DEPLOY_LOOP_TICKS)
+    sharded, sharded_deploy, glue = phase_sharded(paths["trot"])
+    fused.update(sharded)
+    deploy.update(sharded_deploy)
 
     def kernel_line(name, source, replaces, launches, t, **more):
         return {
@@ -1074,6 +1372,7 @@ def main():
                                     device_span_p50=v["device_span_ms_p50"], device_busy=v["device_busy_ms"],
                                     device_idle_share=v["device_idle_share"])
                             for k, v in deploy.items() if "host_ms_p50" in v},
+            glue_profile_ms={k: glue[k] for k in ("control_step_ms", "rollouts_ms", "reverse_once_ms")},
             kernel_b1_ms=timing_e["kernel_b1_ms"], f64_kernel_ms=timing_e["kernel64_ms"],
             lanes=timing_e["lanes"], teams_per_sm=timing_e["teams_per_sm"],
             team_shared_bytes=timing_e["team_shared_bytes"], ptxas=timing_e["ptxas"],

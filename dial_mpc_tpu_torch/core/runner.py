@@ -3,16 +3,24 @@
 Load a flat YAML into DialConfig + env config, build the env and planner,
 run n_steps of receding-horizon control, dump artifacts:
 
-    python -m dial_mpc_tpu_torch.core.runner --example unitree_go2_trot [--engine unfused]
+    python -m dial_mpc_tpu_torch.core.runner --example unitree_go2_trot [--engine unfused] [--serve]
+    torchrun --nproc-per-node N -m dial_mpc_tpu_torch.core.runner --example unitree_go2_trot
 
 Each control step (MBDPI.control_step) only enqueues work on the device;
 the host loop then reads ONE packed tensor back per step for telemetry. The
 run is on the card unless the caller passes ``device="cpu"``.
+
+With ``sharding: mesh`` in the config and a process group of more than one
+rank (``torchrun``; ``parallel.init_distributed``), the planner is
+``ShardedMBDPI``, the sample axis split over the ranks, each on its card
+``cuda:LOCAL_RANK``; otherwise it is ``MBDPI``. Every rank runs the loop;
+rank 0 alone prints, shows progress and writes the artifacts.
 """
 
 from __future__ import annotations
 
 import argparse
+import http.server
 import importlib
 import os
 import sys
@@ -27,6 +35,7 @@ from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.envs.base_env import ENGINES, require_device
 from dial_mpc_tpu_torch.examples import examples
+from dial_mpc_tpu_torch.parallel import ShardedMBDPI, distributed, global_sample_mesh
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
 from dial_mpc_tpu_torch.utils.telemetry import LatencyRecorder
 
@@ -48,11 +57,12 @@ def pack_telemetry(state, u_exec, info) -> torch.Tensor:
     )
 
 
-def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="fused"):
+def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="fused", serve=False):
     """Run the sync receding-horizon loop; returns a summary dict.
 
     ``engine`` is the env's physics route: ``"fused"`` (the whole-step
     kernel) or ``"unfused"`` (stage by stage, the solve on its own kernel).
+    ``serve`` serves the HTML viewer at :5000 after the run, until Ctrl-C.
     """
     device = require_device(device)
     dial_config = load_dataclass_from_dict(DialConfig, config_dict)
@@ -65,7 +75,13 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
     env = dial_envs.get_environment(
         dial_config.env_name, env_config, device=device, dtype=dtype, engine=engine
     )
-    mbdpi = MBDPI(dial_config, env, generator)
+    # sharding: "none" (one device) or "mesh" (the sample axis over every
+    # rank of the process group; one rank plans as "none" does)
+    if config_dict.get("sharding", "none") == "mesh" and distributed.world_size() > 1:
+        mbdpi = ShardedMBDPI(dial_config, env, global_sample_mesh(), generator)
+    else:
+        mbdpi = MBDPI(dial_config, env, generator)
+    lead = distributed.rank() == 0
 
     state = env.reset(generator)
     Y0 = torch.zeros(dial_config.Hnode + 1, mbdpi.nu, device=device, dtype=dtype)
@@ -82,7 +98,7 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
     try:
         from tqdm import tqdm
 
-        iterator = tqdm(range(dial_config.n_steps), desc="Rollout", disable=not progress)
+        iterator = tqdm(range(dial_config.n_steps), desc="Rollout", disable=not (progress and lead))
     except ImportError:  # pragma: no cover
         iterator = range(dial_config.n_steps)
 
@@ -116,25 +132,29 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
         freqs.append(1.0 / max(elapsed, 1e-9))
         if t > 0:  # the first step runs Ndiffuse_init levels and builds the kernel
             latency.add(elapsed)
-        if hasattr(iterator, "set_postfix"):
+        if hasattr(iterator, "set_postfix") and lead:
             iterator.set_postfix({"rew": f"{rews[-1]:.2e}", "freq": f"{freqs[-1]:.2f}"})
 
     mean_rew = float(np.mean(rews))
-    print(f"mean reward = {mean_rew:.2e}")
-    print(latency.report("solve latency"))
+    states_path = predictions_path = html_path = None
+    if lead:
+        print(f"mean reward = {mean_rew:.2e}")
+        print(latency.report("solve latency"))
 
-    # ---- artifacts: (step, qpos, qvel, ctrl) rows and predicted body positions ----
-    os.makedirs(dial_config.output_dir, exist_ok=True)
-    timestamp = time.strftime("%Y%m%d-%H%M%S")
-    data = np.array(
-        [np.concatenate([[i], q, qd, ctrl]) for i, (q, qd, ctrl) in enumerate(rollout_states)]
-    )
-    xdata = np.array(predictions)
-    states_path = os.path.join(dial_config.output_dir, f"{timestamp}_states.npy")
-    predictions_path = os.path.join(dial_config.output_dir, f"{timestamp}_predictions.npy")
-    np.save(states_path, data)
-    np.save(predictions_path, xdata)
-    print("the HTML trajectory viewer is not ported yet; the states are in " + states_path)
+        # ---- artifacts: (step, qpos, qvel, ctrl) rows, predicted body positions, viewer ----
+        os.makedirs(dial_config.output_dir, exist_ok=True)
+        timestamp = time.strftime("%Y%m%d-%H%M%S")
+        data = np.array(
+            [np.concatenate([[i], q, qd, ctrl]) for i, (q, qd, ctrl) in enumerate(rollout_states)]
+        )
+        xdata = np.array(predictions)
+        states_path = os.path.join(dial_config.output_dir, f"{timestamp}_states.npy")
+        predictions_path = os.path.join(dial_config.output_dir, f"{timestamp}_predictions.npy")
+        np.save(states_path, data)
+        np.save(predictions_path, xdata)
+        html_path = write_viewer(env, data[:, 1 : 1 + nq], dial_config.output_dir, timestamp, states_path)
+        if serve and html_path:
+            serve_html(html_path)
 
     return {
         "mean_reward": mean_rew,
@@ -145,8 +165,57 @@ def run(config_dict, progress=True, device="cuda", dtype=torch.float32, engine="
         "latency": latency.summary(),
         "states_path": states_path,
         "predictions_path": predictions_path,
+        "html_path": html_path,
+        "planner": type(mbdpi).__name__,
         "state": state,  # the last env State (on the run's device)
     }
+
+
+def write_viewer(env, qpos, output_dir, timestamp, states_path):
+    """The HTML trajectory viewer of the qpos rows; returns its path, or None
+    where the ``mujoco`` package it needs is not installed (then it says so).
+    Any other error of the viewer is raised."""
+    path = os.path.join(output_dir, f"{timestamp}_visualization.html")
+    try:
+        env.render_html(qpos, path, fps=50.0)
+    except ModuleNotFoundError as e:
+        if e.name != "mujoco":
+            raise
+        print(f"the HTML viewer needs the mujoco package, which is not installed; the states are in {states_path}")
+        return None
+    print(f"visualization written to {path}")
+    return path
+
+
+def serve_html(path, port=5000):
+    """Serve one HTML file at http://localhost:<port> until Ctrl-C."""
+    server = http.server.HTTPServer(("", port), html_handler(path))
+    print(f"serving visualization at http://localhost:{port} (Ctrl-C to stop)")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+def html_handler(path):
+    """A request handler that answers every GET with the file at ``path``."""
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            with open(path, "rb") as f:
+                body = f.read()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    return Handler
 
 
 def main(argv=None):
@@ -165,6 +234,9 @@ def main(argv=None):
     parser.add_argument(
         "--engine", type=str, default="fused", choices=ENGINES,
         help="fused: the whole-step kernel; unfused: stage by stage with the solver kernel",
+    )
+    parser.add_argument(
+        "--serve", action="store_true", help="serve the HTML viewer at :5000 after the run"
     )
     args = parser.parse_args(argv)
 
@@ -185,7 +257,13 @@ def main(argv=None):
     with open(config_path) as f:
         config_dict = yaml.safe_load(f)
 
-    run(config_dict, device=args.device, engine=args.engine)
+    # a group under torchrun (its variables set), else a single process
+    started = distributed.init_distributed(device=args.device)
+    try:
+        run(config_dict, device=args.device, engine=args.engine, serve=args.serve)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Asynchronous planner process.
 
     python -m dial_mpc_tpu_torch.deploy.planner_proc --example unitree_go2_trot_deploy [--device cpu]
+    torchrun --nproc-per-node N -m dial_mpc_tpu_torch.deploy.planner_proc --example ...  (sharding: mesh)
 
 Counterpart of the JAX package's ``deploy/planner_proc.py`` (reference:
 dial_mpc/deploy/dial_plan.py:45-294): attach to the shm bus, inject the
@@ -14,6 +15,12 @@ with their rollouts on the step kernel, the control extraction) and then
 makes ONE device-to-host copy of a packed float32 tensor holding everything
 the bus needs; the plan and the noise generator stay on the device between
 ticks. The planner runs on the card unless the caller asks for the CPU.
+
+With ``sharding: mesh`` under ``torchrun`` (a process group of more than one
+rank), the levels run on ``ShardedMBDPI`` over the ranks. Rank 0 alone
+attaches the bus: each tick it broadcasts the measured state, the bus time
+and whether to stop, every rank injects the state and plans, and rank 0
+publishes the plan and writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -35,14 +42,10 @@ from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.deploy.shm import ShmBus
 from dial_mpc_tpu_torch.envs.base_env import require_device
 from dial_mpc_tpu_torch.examples import deploy_examples
+from dial_mpc_tpu_torch.parallel import ShardedMBDPI, distributed, global_sample_mesh
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
 from dial_mpc_tpu_torch.utils.spline import FixedSpline
 from dial_mpc_tpu_torch.utils.telemetry import LatencyRecorder
-
-
-def device_count(device: torch.device) -> int:
-    """Devices of ``device``'s kind that a sample mesh could span."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 class MBDPublisher:
@@ -56,9 +59,11 @@ class MBDPublisher:
     JAX package's checkpoints hold a JAX key instead of a generator state
     and are not read.
 
-    ``sharding``: ``"none"`` plans on the env's device; ``"mesh"`` does the
-    same where there is one device, and raises where there are more: the
-    sharded planner is not ported yet.
+    ``sharding``: ``"none"`` plans on the env's device; ``"mesh"`` splits the
+    sample axis over the ranks of the process group (``ShardedMBDPI``) where
+    it has more than one, and plans as ``"none"`` otherwise. In a group, rank
+    0 alone attaches the bus (``bus`` is None on the others); every rank
+    reads a checkpoint, rank 0 alone writes it.
 
     ``bus_prefix`` is the prefix of the bus's segment names (``shm.ShmBus``);
     the default, empty, is the names every sim server and robot host uses.
@@ -79,13 +84,14 @@ class MBDPublisher:
         self.checkpoint_path = checkpoint_path
         self.device, self.dtype = env.device, env.dtype
 
-        if sharding == "mesh" and device_count(self.device) > 1:
-            raise NotImplementedError(
-                f"sharding='mesh' over {device_count(self.device)} devices needs the sharded "
-                "planner (parallel/, ROADMAP queue A item 3), which this package does not have yet"
-            )
         self.generator = torch.Generator(device=self.device).manual_seed(dial_config.seed)
-        self.mbdpi = MBDPI(dial_config, env, self.generator)
+        # the group that shares each tick; None plans alone
+        self.mesh = global_sample_mesh() if sharding == "mesh" and distributed.world_size() > 1 else None
+        if self.mesh is None:
+            self.mbdpi = MBDPI(dial_config, env, self.generator)
+        else:
+            self.mbdpi = ShardedMBDPI(dial_config, env, self.mesh, self.generator)
+        self.lead = self.mesh is None or self.mesh.rank == 0
         # wall-clock warm-start resampler over the node grid
         # (reference: dial_plan.py:136-139)
         self.node_shift = FixedSpline(
@@ -105,11 +111,13 @@ class MBDPublisher:
         # starting after the trunk
         self._nb = min(mj.nu, mj.nbody - 2)
 
-        self.bus = ShmBus(self.nq + self.nv, self.nu, self.n_acts, create=False, prefix=bus_prefix)
-        self.bus.acts[:] = self.default_u
-        self.bus.refs[:] = 1.0
-        self.bus.plan_time[0] = -self.ctrl_dt
-        self.bus.state[: self.nq] = self.default_q
+        self.bus = None
+        if self.lead:
+            self.bus = ShmBus(self.nq + self.nv, self.nu, self.n_acts, create=False, prefix=bus_prefix)
+            self.bus.acts[:] = self.default_u
+            self.bus.refs[:] = 1.0
+            self.bus.plan_time[0] = -self.ctrl_dt
+            self.bus.state[: self.nq] = self.default_q
 
         if checkpoint_path and os.path.exists(checkpoint_path):
             try:
@@ -123,7 +131,7 @@ class MBDPublisher:
                 print(f"[WARN] checkpoint restore failed: {e}")
 
     def save_checkpoint(self):
-        if self.checkpoint_path:
+        if self.checkpoint_path and self.lead:
             np.savez(
                 self.checkpoint_path,
                 Y=self.Y.cpu().numpy(),
@@ -184,24 +192,37 @@ class MBDPublisher:
 
     # -- host loop -------------------------------------------------------------
 
+    def read_bus(self, stop=False):
+        """(measured state, bus time, stop) as rank 0 reads them from the bus
+        and decides to stop; in a group, broadcast from rank 0 to every rank
+        (one float64 tensor on the planner's device)."""
+        nx = self.nq + self.nv
+        if self.lead:
+            x, t = self.bus.state.copy(), float(self.bus.time[0])
+        if self.mesh is None:
+            return x, t, stop
+        packet = torch.zeros(nx + 2, dtype=torch.float64, device=self.device)
+        if self.lead:
+            packet.copy_(torch.from_numpy(np.concatenate([x, [t, float(stop)]]).astype(np.float64)))
+        torch.distributed.broadcast(packet, src=0, group=self.mesh.group)
+        host = packet.cpu().numpy()
+        return host[:nx], float(host[nx]), bool(host[nx + 1])
+
     def main_loop(self, max_iters=None, verbose=True):
+        """Tick until ``max_iters`` ticks (rank 0 decides; forever if None)."""
+        verbose = verbose and self.lead
         latency = LatencyRecorder()
-        last_plan_time = float(self.bus.time[0])
-        state = self.init_state(
-            self.bus.state[: self.nq].copy(), self.bus.state[self.nq :].copy()
-        )
+        x, last_plan_time, _ = self.read_bus()
+        state = self.init_state(x[: self.nq], x[self.nq :])
         na, nu, nb = self.n_acts, self.nu, self._nb
         first_time = True
         iters = 0
-        while max_iters is None or iters < max_iters:
+        while True:
             t0 = time.time()
-            plan_time = float(self.bus.time[0])
-            state = self.update_state(
-                state,
-                self.bus.state[: self.nq].copy(),
-                self.bus.state[self.nq :].copy(),
-                plan_time,
-            )
+            x, plan_time, stop = self.read_bus(stop=max_iters is not None and iters >= max_iters)
+            if stop:
+                break
+            state = self.update_state(state, x[: self.nq], x[self.nq :], plan_time)
             shift_time = plan_time - last_plan_time
             if shift_time > self.ctrl_dt + 1e-3 and verbose:
                 print(f"[WARN] sim overtime {(shift_time - self.ctrl_dt) * 1000:.1f} ms")
@@ -224,10 +245,11 @@ class MBDPublisher:
             # ONE device-to-host copy for everything the bus needs; it also
             # waits for the tick's device work (Y and the generator stay there)
             packed = packed.cpu().numpy()
-            self.bus.acts[:] = packed[: na * nu].reshape(na, nu)
-            self.bus.tau[:] = packed[na * nu : 2 * na * nu].reshape(na, nu)
-            self.bus.refs[:, :nb, :] = packed[2 * na * nu :].reshape(na, nb, 3)
-            self.bus.plan_time[0] = plan_time
+            if self.lead:
+                self.bus.acts[:] = packed[: na * nu].reshape(na, nu)
+                self.bus.tau[:] = packed[na * nu : 2 * na * nu].reshape(na, nu)
+                self.bus.refs[:, :nb, :] = packed[2 * na * nu :].reshape(na, nb, 3)
+                self.bus.plan_time[0] = plan_time
             last_plan_time = plan_time
             iters += 1
             if self.checkpoint_path and iters % 250 == 0:
@@ -243,7 +265,8 @@ class MBDPublisher:
         self.last_latency = latency.summary()
 
     def close(self):
-        self.bus.close()
+        if self.bus is not None:
+            self.bus.close()
 
 
 def main(argv=None):
@@ -262,6 +285,10 @@ def main(argv=None):
     parser.add_argument(
         "--device", type=str, default="cuda", help="cuda (default) or cpu; there is no fallback"
     )
+    parser.add_argument(
+        "--bus-prefix", type=str, default="", help="prefix of the bus's segment names (the sim server's)"
+    )
+    parser.add_argument("--ticks", type=int, default=None, help="stop after this many ticks (default: never)")
     args = parser.parse_args(argv)
 
     if args.custom_env is not None:
@@ -282,6 +309,8 @@ def main(argv=None):
     with open(config_path) as f:
         config_dict = yaml.safe_load(f)
 
+    # a group under torchrun (its variables set), else a single process
+    started = distributed.init_distributed(device=args.device)
     device = require_device(args.device)
     dial_config = load_dataclass_from_dict(DialConfig, config_dict)
     env_config_type = dial_envs.get_config(dial_config.env_name)
@@ -296,14 +325,17 @@ def main(argv=None):
         dial_config,
         checkpoint_path=args.checkpoint,
         sharding=config_dict.get("sharding", "none"),
+        bus_prefix=args.bus_prefix,
     )
     try:
-        publisher.main_loop()
+        publisher.main_loop(max_iters=args.ticks)
     except KeyboardInterrupt:
         pass
     finally:
         publisher.save_checkpoint()
         publisher.close()
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

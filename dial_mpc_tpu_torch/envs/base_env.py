@@ -20,6 +20,7 @@ from dial_mpc_tpu_torch.physics import engine_cuda
 from dial_mpc_tpu_torch.physics import model as mlib
 from dial_mpc_tpu_torch.physics.forward import forward
 from dial_mpc_tpu_torch.physics.forward import step as physics_step
+from dial_mpc_tpu_torch.utils.io_utils import get_model_path
 
 ENGINES = ("fused", "unfused")
 
@@ -213,3 +214,62 @@ class BaseEnv:
 
     def step(self, state: State, action: torch.Tensor) -> State:
         raise NotImplementedError
+
+    # -- rendering (host side, CPU MuJoCo: where ``mujoco`` is installed) ------
+
+    def viewer_model(self):
+        """The ``mujoco.MjModel`` of the env's scene, compiled from its MJCF
+        (the compiled snapshot ``mj_model`` holds no meshes or colours)."""
+        import mujoco
+
+        if self.mj_model.source is None:
+            raise ValueError("the env's model was not loaded from a shipped scene (load_scene)")
+        model = mujoco.MjModel.from_xml_path(get_model_path(*self.mj_model.source))
+        model.opt.timestep = self.mj_model.opt.timestep
+        return model
+
+    def render(self, trajectory, camera=None, width=240, height=320):
+        """Rasterize a trajectory of States (or pipeline Datas) to a list of
+        RGB uint8 arrays with CPU MuJoCo. Needs a GL backend (MUJOCO_GL=egl or
+        osmesa where there is no display); ``render_html`` needs none."""
+        import mujoco
+
+        model = self.viewer_model()
+        renderer = mujoco.Renderer(model, height=height, width=width)
+        data = mujoco.MjData(model)
+        out = []
+        try:
+            for st in trajectory:
+                ps = getattr(st, "pipeline_state", st)
+                data.qpos[:] = _one_row(ps.qpos, model.nq)
+                data.qvel[:] = _one_row(ps.qvel, model.nv)
+                mujoco.mj_forward(model, data)
+                if camera is None:
+                    renderer.update_scene(data)
+                else:
+                    renderer.update_scene(data, camera=camera)
+                out.append(renderer.render())
+        finally:
+            renderer.close()
+        return out
+
+    def render_html(self, trajectory, path, fps=None, decimate=1):
+        """Self-contained WebGL HTML viewer of a trajectory of States (or
+        pipeline Datas, or raw qpos rows), written to ``path``; returns it.
+        Works headless; meshes are drawn decimated."""
+        from dial_mpc_tpu_torch.viz.html_viewer import render_trajectory
+
+        model = self.viewer_model()
+        qpos = [_one_row(getattr(getattr(st, "pipeline_state", st), "qpos", st), model.nq) for st in trajectory]
+        return render_trajectory(
+            model, np.stack(qpos), path, fps=(1.0 / self.dt if fps is None else fps), decimate=decimate
+        )
+
+
+def _one_row(x, n: int) -> np.ndarray:
+    """One state's (n,) vector from a tensor or array of n values (a batch of
+    one included)."""
+    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if a.size != n:
+        raise ValueError(f"expected one state of {n} values, got shape {a.shape}")
+    return a.reshape(n).astype(np.float64)

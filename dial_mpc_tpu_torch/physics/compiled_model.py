@@ -55,6 +55,8 @@ class CompiledModel:
     ``opt`` is mutable (the environments set ``opt.timestep`` from their
     config). ``disable_bits`` maps a disable flag's name to its bit in
     ``opt.disableflags``, as the compiling MuJoCo version numbers them.
+    ``source`` is the (robot, MJCF) pair a shipped scene was compiled from
+    (``load_scene``), None otherwise.
     """
 
     def __init__(self, arrays: dict, opt: dict, disable_bits: dict, names: dict):
@@ -63,6 +65,7 @@ class CompiledModel:
         self.opt = types.SimpleNamespace(**opt)
         self.disable_bits = dict(disable_bits)
         self.names = {k: list(v) for k, v in names.items()}
+        self.source = None
 
     def disabled(self, flag: str) -> bool:
         return bool(int(self.opt.disableflags) & self.disable_bits[flag])
@@ -157,7 +160,9 @@ def load_scene(robot_name: str, model_name: str) -> CompiledModel:
             f"{path} is missing; compile it with "
             f"python -m dial_mpc_tpu_torch.physics.compiled_model {robot_name} {model_name}"
         )
-    return load(path)
+    cm = load(path)
+    cm.source = (robot_name, model_name)
+    return cm
 
 
 def main(argv=None):

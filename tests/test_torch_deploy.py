@@ -413,15 +413,87 @@ def test_checkpoint_of_the_jax_package_is_not_read(small_publisher, tmp_path, ca
     assert torch.equal(pub.generator.get_state(), torch.Generator().manual_seed(0).get_state())
 
 
-def test_mesh_sharding_over_devices_raises(small_publisher, monkeypatch):
-    """The sharded planner is not ported: a mesh of more than one device
-    raises; a mesh of one plans as "none" does, as the reference does."""
+def test_mesh_sharding_in_one_process_plans_alone(small_publisher):
+    """Without a process group of more than one rank, "mesh" plans as "none"
+    does (MBDPI, the bus attached), as the reference does on one device."""
     make, bus, env = small_publisher
-    assert isinstance(make(sharding="mesh").mbdpi, MBDPI)
-    monkeypatch.setattr(planner_proc, "device_count", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make(sharding="mesh")
-    assert isinstance(make(sharding="none").mbdpi, MBDPI)
+    for sharding in ("mesh", "none"):
+        pub = make(sharding=sharding)
+        assert type(pub.mbdpi) is MBDPI and pub.mesh is None and pub.lead and pub.bus is not None
+
+
+# the planner of tests/test_deploy.py::test_publisher_sharded_mesh
+MESH = dict(Nsample=16, Hsample=16, Hnode=4, Ndiffuse=1, Ndiffuse_init=2, kd=0.0, sharding="mesh")
+
+
+def test_publisher_sharded_mesh(tmp_path):
+    """Counterpart of tests/test_deploy.py::test_publisher_sharded_mesh: the
+    publisher with sharding "mesh" on two gloo ranks (processes; float64,
+    three ticks) on a bus this test made. It builds ShardedMBDPI on both,
+    rank 0 alone attaches the bus and publishes finite, non-zero torques and
+    body positions, and the ranks end with the same plan, which is within
+    1e-10 (float64 reduction order) of a one-rank ShardedMBDPI publisher's
+    on the same bus."""
+    from test_torch_parallel import spawn_ranks
+
+    from dial_mpc_tpu_torch.parallel import ShardedMBDPI, global_sample_mesh, init_distributed
+
+    cfgd = _deploy_config(**MESH)
+    cfg, env_cfg, env = _port(cfgd)
+    bus = _bus_for(env, cfg)
+    try:
+        bus.state[: env.mj_model.nq] = env.mj_model.keyframe_qpos("home")
+        ranks = spawn_ranks(dict(kind="publisher", cfgd=cfgd, prefix=PREFIX, ticks=3), 2)
+        assert [r["sharded"] for r in ranks] == [True, True]
+        assert [r["attached"] for r in ranks] == [True, False]
+        assert np.array_equal(ranks[0]["Y"], ranks[1]["Y"])
+        assert np.array_equal(ranks[0]["generator"], ranks[1]["generator"])
+        taus, acts, refs = np.array(bus.tau), np.array(bus.acts), np.array(bus.refs)
+        assert np.isfinite(taus).all() and np.isfinite(acts).all() and np.isfinite(refs).all()
+        assert np.abs(taus).max() > 0.0, "sharded planner published empty torques"
+        nb = min(env.mj_model.nu, env.mj_model.nbody - 2)
+        assert not np.allclose(refs[:, :nb], 1.0) and bus.plan_time[0] == 0.0
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+        try:
+            pub = MBDPublisher(env, env_cfg, cfg, sharding="mesh", bus_prefix=PREFIX)
+            assert type(pub.mbdpi) is MBDPI  # a group of one plans alone
+            pub.mbdpi = ShardedMBDPI(cfg, env, global_sample_mesh(), pub.generator)
+            try:
+                pub.main_loop(max_iters=3, verbose=False)
+            finally:
+                pub.close()
+        finally:
+            torch.distributed.destroy_process_group()
+            torch.set_num_threads(threads)
+        np.testing.assert_allclose(ranks[0]["Y"], pub.Y.numpy(), atol=1e-10, rtol=0)
+        # the one-rank publisher wrote the same plan's controls over them (float32 bus)
+        np.testing.assert_allclose(np.array(bus.tau), taus, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(np.array(bus.acts), acts, atol=1e-6, rtol=0)
+    finally:
+        bus.close()
+
+
+def test_planner_cli_runs_its_ticks_on_a_prefixed_bus(tmp_path):
+    """The planner's command line on the CPU: --bus-prefix names the bus it
+    attaches, --ticks stops it, and it leaves its checkpoint."""
+    cfgd = _deploy_config(**SMALL)
+    cfg, env_cfg, env = _port(cfgd)
+    bus = _bus_for(env, cfg)
+    cfg_path, ckpt = tmp_path / "deploy.yaml", tmp_path / "planner.npz"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfgd, f)
+    try:
+        bus.state[: env.mj_model.nq] = env.mj_model.keyframe_qpos("home")
+        planner_proc.main(["--config", str(cfg_path), "--device", "cpu", "--bus-prefix", PREFIX, "--ticks", "2",
+                           "--checkpoint", str(ckpt)])
+        assert np.isfinite(bus.tau).all() and np.abs(bus.tau).max() > 0 and bus.plan_time[0] == 0.0
+        with np.load(ckpt) as z:
+            assert z["Y"].shape == (cfg.Hnode + 1, env.action_size) and np.isfinite(z["Y"]).all()
+    finally:
+        bus.close()
 
 
 def test_planner_cli_defaults_to_the_card(capsys):

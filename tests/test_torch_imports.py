@@ -6,6 +6,7 @@ Run with:  python -m pytest tests/test_torch_*.py -q
 
 import ast
 import glob
+import importlib.util
 import os
 import subprocess
 import sys
@@ -154,10 +155,12 @@ def test_runner_on_cpu_writes_the_two_artifacts(tmp_path, capsys):
     assert states.shape == (2, 1 + 19 + 18 + 12) and preds.shape == (2, 17, 13, 3)
     assert states[:, 0].tolist() == [0.0, 1.0] and np.isfinite(states).all() and np.isfinite(preds).all()
     assert len(summary["rews"]) == 2 and summary["latency"]["n"] == 1
-    assert sorted(os.listdir(cfg["output_dir"])) == sorted(
-        os.path.basename(summary[k]) for k in ("states_path", "predictions_path")
-    )
-    assert "viewer is not ported" in capsys.readouterr().out
+    # the two artifacts, and the HTML viewer where mujoco is installed (it says which)
+    viewer = importlib.util.find_spec("mujoco") is not None
+    kinds = ("states_path", "predictions_path", "html_path")[: 2 + viewer]
+    assert sorted(os.listdir(cfg["output_dir"])) == sorted(os.path.basename(summary[k]) for k in kinds)
+    out = capsys.readouterr().out
+    assert ("visualization written to" in out) if viewer else ("the HTML viewer needs the mujoco package" in out)
 
 
 def test_runner_cli(capsys):
@@ -190,7 +193,11 @@ def test_runner_cli_runs_an_example_on_the_cpu(tmp_path, monkeypatch, capsys, ex
                         lambda *a, **kw: seen.update(kw) or real(*a, **kw))
     runner.main(["--config", str(path), "--device", "cpu", "--engine", engine])
     assert seen["engine"] == engine and str(seen["device"]) == "cpu"
-    assert "mean reward" in capsys.readouterr().out and len(os.listdir(cfg["output_dir"])) == 2
+    # the states and the predictions, and the HTML viewer where mujoco is installed
+    written = os.listdir(cfg["output_dir"])
+    viewer = importlib.util.find_spec("mujoco") is not None
+    assert "mean reward" in capsys.readouterr().out and sum(n.endswith(".npy") for n in written) == 2
+    assert len(written) == 2 + viewer
 
 
 def test_registry():
