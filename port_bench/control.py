@@ -45,9 +45,9 @@ def _tf32(on: bool):
 
 
 def control_readings(run, seed, device, control="tf32"):
-    """The readings of a control on the run's checked steps: the reference
-    put in the program's place, all of it computed at the control's
-    precision, judged as the program is."""
+    """The readings of a control on the run's executed and checked steps:
+    the reference put in the program's place, all of it computed at the
+    control's precision, judged as the program is."""
     from port_bench.harness.check import Judge, worst
     from port_bench.harness.loop import draw_eps
 
@@ -60,7 +60,12 @@ def control_readings(run, seed, device, control="tf32"):
         r = stand_in.task.reset().data
     finally:
         _tf32(False)
-    readings = [{"reset": judge.reset_gap(r.qpos, r.qvel, r.x_pos)}]
+    _tf32(tf32)
+    try:
+        executed = stand_in.executed_outputs(run.executed)
+    finally:
+        _tf32(False)
+    readings = [{"reset": judge.reset_gap(r.qpos, r.qvel, r.x_pos)}, judge.advance_readings(executed)]
     for rec in run.checked:
         shape = (rec.n_diffuse, n_sample, rec.Y_in.shape[0], rec.Y_in.shape[1])
         eps = draw_eps(seed, rec.draw, shape, device, torch.float32)

@@ -1,24 +1,33 @@
 """How ``correct`` is decided: the plain reference recomputes what the timed
-path produced in a sample of the window's control steps, stage by stage from
-the program's own inputs to each stage, and each number compared is held to
-its limit (``limits/<workload>.json``; a number without a limit there is
-printed, not compared).
+path produced, stage by stage from the program's own inputs to each stage,
+and each number compared is held to its limit (``limits/<workload>.json``;
+a number without a limit there is printed, not compared).
 
-For a checked control step the harness keeps every call the step made of
-the env's physics step (``pipeline_step``: the state and control it was
-given, the products it returned), the rewards and body positions of every
-level, and the plan. The reference (``port_bench/reference``) recomputes:
+For every control step of the window the harness keeps the executed step's
+input state, plan and product (B = 1, small). For a sample of the window's
+steps it keeps besides every call the step made of the env's physics step
+(``pipeline_step``: the state and control it was given, the products it
+returned), the rewards and body positions of every level, and the plan;
+they leave the device after the step. The reference
+(``port_bench/reference``) recomputes:
 
-- ``physics_q50``, ``physics_q90``: each physics call of the step (the
-  executed step at B = 1 and every rollout step at B = N + 1) from the
-  program's input state, with the reference's own control from the action,
-  in float64: per sample the widest gap of qpos, and of qvel times dt, to
-  the program's products, in metres or radians (a sample whose state blew
-  up on both sides agrees; on one side only, its gap is infinite); the
-  median and the 90th percentile over every sample of the rollout calls.
-  One env step at a time, so the gaps stay at rounding where the rollouts
-  of a violent state, chained over 21 env steps, part ways (``advance``, the
-  executed step, and ``physics_max`` are printed);
+- ``advance_q50``: the executed step of every window step (the robot's own
+  state, B = 1) from the program's input state, with the reference's own
+  control from the plan's first node, in float64: the widest gap of qpos,
+  and of qvel times dt, to the program's product; the median over the
+  window's steps (``advance_max`` is printed). A step whose advance the
+  program froze (its state did not advance in time) or whose state blew up
+  is a failed step and is not judged here;
+- ``physics_q50``, ``physics_q90``: each rollout physics call of a checked
+  step (B = N + 1) from the program's input state, in float64: per sample
+  the same gap; the median and the 90th percentile over every sample of
+  the step's rollout calls (a sample whose state blew up on both sides
+  agrees; on one side only, its gap is infinite; a step with no sample
+  sound on both sides reads infinite). One env step at a time, so the gaps
+  stay at rounding where rollouts of a violent state, chained over 21 env
+  steps, part ways (``physics_max`` is printed). The median catches a step
+  that is wrong everywhere, the 90th percentile one that is wrong for a
+  tenth of the samples or more;
 - ``rews``: every rollout's horizon-mean reward of every level, the
   reference's reward of each step taken from the program's physics
   products: the widest relative gap (to the reference's magnitude plus the
@@ -43,16 +52,60 @@ import torch
 
 from port_bench.reference.model import Contact, Data
 from port_bench.reference.planner import Planner
-from port_bench.reference.tasks import State, make_task
+from port_bench.reference.task import State
+from port_bench.reference.tasks import make_task
 
 EXPLODED = 1e30  # a reward beyond this is a rollout that blew up, as float32's overflow is
 
 
+FIELDS = ("qpos", "qvel", "ctrl", "time", "site_xpos", "x_pos", "x_rot", "xd_vel", "xd_ang", "qacc")
+
+
+@dataclasses.dataclass
+class Products:
+    """What a task's reward reads of a physics call's products, on the host."""
+
+    qpos: torch.Tensor
+    qvel: torch.Tensor
+    ctrl: torch.Tensor
+    time: torch.Tensor
+    site_xpos: torch.Tensor
+    x_pos: torch.Tensor
+    x_rot: torch.Tensor
+    xd_vel: torch.Tensor
+    xd_ang: torch.Tensor
+    qacc: torch.Tensor
+    contact_dist: torch.Tensor
+    contact_pos: torch.Tensor
+
+    @classmethod
+    def of(cls, d) -> "Products":
+        """The products of a physics call (the program's or the reference's
+        data), copied to the host."""
+        host = lambda x: x.detach().to("cpu", copy=True)
+        return cls(**{k: host(getattr(d, k)) for k in FIELDS},
+                   contact_dist=host(d.contact.dist), contact_pos=host(d.contact.pos))
+
+
+@dataclasses.dataclass
+class Executed:
+    """The executed step of each judged window step, stacked on the host:
+    its episode step, input state and plan, and the program's product."""
+
+    t: list
+    qpos_in: torch.Tensor  # (steps, nq)
+    qvel_in: torch.Tensor
+    Y_in: torch.Tensor  # (steps, Hnode + 1, nu)
+    qpos_out: torch.Tensor
+    qvel_out: torch.Tensor
+
+
 @dataclasses.dataclass
 class StepRecord:
-    """What the timed path took and produced in one control step. ``calls``
-    holds each physics call as (qpos, qvel, ctrl, products) in call order:
-    the executed step, then each level's Hsample + 1 rollout steps."""
+    """What the timed path took and produced in one control step, on the
+    host. ``calls`` holds each physics call as (qpos, qvel, ctrl,
+    Products) in call order: the executed step, then each level's
+    Hsample + 1 rollout steps."""
 
     t: int  # control steps of the episode before this one: the state's step counter
     draw: int  # the step's index in the run, which keys its draws
@@ -62,6 +115,14 @@ class StepRecord:
     rews: torch.Tensor  # (levels, N + 1)
     xbar: torch.Tensor  # (levels, Hsample + 1, bodies, 3)
     calls: list
+
+    @classmethod
+    def of(cls, t, draw, n_diffuse, Y_in, Y_out, info, calls) -> "StepRecord":
+        """A control step's record, copied to the host."""
+        host = lambda x: x.detach().to("cpu", copy=True)
+        return cls(t=t, draw=draw, n_diffuse=n_diffuse, Y_in=host(Y_in), Y_out=host(Y_out),
+                   rews=host(info["rews"]), xbar=host(info["xbar"]),
+                   calls=[(host(q), host(v), host(c), Products.of(o)) for q, v, c, o in calls])
 
 
 def _f(x, dtype, device):
@@ -102,13 +163,12 @@ class Judge:
             float((_f(x_pos, self.dtype, self.device) - r.x_pos).abs().max()),
         )
 
-    def _data(self, out) -> Data:
+    def _data(self, out: Products) -> Data:
         """A physics call's products as the reference's Data (the fields the
         rewards read)."""
         dt, dev, m = self.dtype, self.device, self.task.sys
-        c = out.contact
         contact = Contact(
-            dist=_f(c.dist, dt, dev), pos=_f(c.pos, dt, dev), frame=None, geom=m.con_geom,
+            dist=_f(out.contact_dist, dt, dev), pos=_f(out.contact_pos, dt, dev), frame=None, geom=m.con_geom,
             includemargin=m.con_includemargin, friction=m.con_friction, solref=m.con_solref,
             solimp=m.con_solimp, dim=m.con_dim,
         )
@@ -119,14 +179,18 @@ class Judge:
             qacc=_f(out.qacc, dt, dev), contact=contact,
         )
 
-    def _state(self, qpos, qvel, step: int) -> State:
-        """The state a physics call started from, at the episode's ``step``."""
+    def _state(self, qpos, qvel, step) -> State:
+        """The states physics calls started from, at the episode's ``step``
+        (one for all rows, or a list of one a row)."""
         st = self.task.state_at(_f(qpos[:1], self.dtype, self.device), _f(qvel[:1], self.dtype, self.device),
-                                torch.zeros(1, dtype=self.dtype, device=self.device), step)
+                                torch.zeros(1, dtype=self.dtype, device=self.device), 0)
         n = qpos.shape[0]
         data = Data(qpos=_f(qpos, self.dtype, self.device), qvel=_f(qvel, self.dtype, self.device),
                     ctrl=st.data.ctrl.expand(n, -1), time=st.data.time.expand(n))
-        return State(data, st.reward.expand(n), {k: v.expand(n, *v.shape[1:]) for k, v in st.info.items()})
+        info = {k: v.expand(n, *v.shape[1:]) for k, v in st.info.items()}
+        steps = step if isinstance(step, list) else [step] * n
+        info["step"] = torch.tensor(steps, dtype=torch.int32, device=self.device)
+        return State(data, st.reward.expand(n), info)
 
     def _walk(self, rec: StepRecord, eps: torch.Tensor, own: bool):
         """The step's stages from the record's inputs. With ``own`` False the
@@ -175,29 +239,52 @@ class Judge:
         state with the reference's own control, its rewards, its plan and
         body positions. This is what the control puts in the program's place."""
         physics, rews, Y, xbar = self._walk(rec, eps, own=True)
-        calls = [(q, v, c, d) for (q, v, _, d), (_, _, c, _) in zip(physics, rec.calls)]
+        calls = [(q, v, c, Products.of(d)) for (q, v, _, d), (_, _, c, _) in zip(physics, rec.calls)]
         return dataclasses.replace(rec, calls=calls, rews=rews, Y_out=Y, xbar=xbar)
+
+    def executed_outputs(self, ex: Executed) -> Executed:
+        """The reference's own executed steps from the program's inputs, at
+        the judge's dtype: what the control puts in the program's place."""
+        d = self._advance(ex)
+        return dataclasses.replace(ex, qpos_out=d.qpos.cpu(), qvel_out=d.qvel.cpu())
+
+    def _advance(self, ex: Executed) -> Data:
+        """Every executed step of ``ex`` from its input state under the
+        plan's first node, as one batch: the physics of a sample reads
+        nothing of the others."""
+        st = self._state(ex.qpos_in, ex.qvel_in, ex.t)
+        ctrl = self.task.ctrl(st, _f(ex.Y_in[:, 0], self.dtype, self.device))
+        return self.task.eager_step(st.data.qpos, st.data.qvel, ctrl)
+
+    def advance_readings(self, ex: Executed) -> dict:
+        """``advance_q50`` and ``advance_max`` over the judged window steps."""
+        if not ex.t:
+            return {"advance_q50": float("nan"), "advance_max": float("nan")}
+        dt, dev = self.dtype, self.device
+        d = self._advance(ex)
+        gaps = _gaps(_f(ex.qpos_out, dt, dev), _f(ex.qvel_out, dt, dev), d.qpos, d.qvel, self.task.dt)
+        q50 = torch.quantile(gaps, 0.5, interpolation="higher")
+        return {"advance_q50": float(q50), "advance_max": float(gaps.max())}
 
     def readings(self, rec: StepRecord, eps: torch.Tensor) -> dict:
         """The numbers compared for one checked step."""
         dt, dev, h = self.dtype, self.device, self.task.dt
         physics, rews_ref, Y, xbar = self._walk(rec, eps, own=False)
-        gaps = []
-        for _, _, out, d in physics:
+        gaps, judged = [], 0
+        for _, _, out, d in physics[1:]:
             qpos, qvel = _f(out.qpos, dt, dev), _f(out.qvel, dt, dev)
-            g = torch.maximum((qpos - d.qpos).abs().amax(-1), (qvel - d.qvel).abs().amax(-1) * h)
-            blown_p, blown_r = _blown(qpos, qvel), _blown(d.qpos, d.qvel)
-            g = torch.where(blown_p | blown_r, torch.zeros_like(g), g)
-            gaps.append(torch.where(blown_p != blown_r, torch.full_like(g, float("inf")), g))
-        advance = float(gaps[0].max())
-        gaps = torch.cat(gaps[1:])
+            gaps.append(_gaps(qpos, qvel, d.qpos, d.qvel, h))
+            judged += int((~_blown(qpos, qvel) & ~_blown(d.qpos, d.qvel)).sum())
+        gaps = torch.cat(gaps)
         q = torch.quantile(gaps, torch.tensor([0.5, 0.9], dtype=dt, device=dev), interpolation="higher")
+        if judged == 0:  # every sample blew up on both sides: the step judges nothing, and fails
+            q = torch.full_like(q, float("inf"))
         rews = 0.0
         for i in range(rec.n_diffuse):
             rews = _max(rews, float(_reward_gaps(_f(rec.rews[i], dt, dev), rews_ref[i]).max()))
         return {
             "physics_q50": float(q[0]), "physics_q90": float(q[1]), "physics_max": float(gaps.max()),
-            "advance": advance, "rews": rews,
+            "rews": rews,
             "plan": float((_f(rec.Y_out, torch.float32, dev) - Y).abs().max()),
             "xbar": float(_agreeing_gap(_f(rec.xbar, dt, dev), xbar).max()),
         }
@@ -209,6 +296,15 @@ def _agreeing_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     gap = (a - b).abs()
     gap = torch.where(torch.isfinite(a) & torch.isfinite(b), gap, torch.full_like(gap, float("inf")))
     return torch.where(~torch.isfinite(a) & ~torch.isfinite(b), torch.zeros_like(gap), gap)
+
+
+def _gaps(qpos, qvel, ref_qpos, ref_qvel, dt: float) -> torch.Tensor:
+    """Per sample, the widest gap of qpos, and of qvel times dt; a sample
+    blown up on both sides agrees (0), on one side only is infinitely apart."""
+    g = torch.maximum((qpos - ref_qpos).abs().amax(-1), (qvel - ref_qvel).abs().amax(-1) * dt)
+    blown_p, blown_r = _blown(qpos, qvel), _blown(ref_qpos, ref_qvel)
+    g = torch.where(blown_p | blown_r, torch.zeros_like(g), g)
+    return torch.where(blown_p != blown_r, torch.full_like(g, float("inf")), g)
 
 
 def _blown(qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,11 @@ control step is ``MBDPI.control_step`` followed by the one readback
 ``pack_telemetry(...).cpu()``, and an episode is the configuration's
 ``n_steps`` control steps from the task's reset, the first of them with
 ``Ndiffuse_init`` levels. After an episode the loop starts the next from the
-reset, inside the step that begins it, as a user's next run would. The
-harness draws each step's standard-normal noise itself, from the run's seed
+reset, inside the step that begins it, as a user's next run would; so it
+does after a failed step, whose robot state the program froze or which
+came back blown up (the step's own readback shows it), since the rest of
+that episode would plan from a state that no longer moves. The harness
+draws each step's standard-normal noise itself, from the run's seed
 and the step's index in the run, and hands it to the planner
 (``control_step(..., eps=)``), so that the reference can be given the same
 draws.
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from port_bench.harness.cells import Cell
-from port_bench.harness.check import Judge, StepRecord, verdict, worst
+from port_bench.harness.check import EXPLODED, Executed, Judge, StepRecord, verdict, worst
 
 WARMUP_STEPS = 3  # the first step (Ndiffuse_init levels) and two of Ndiffuse
 
@@ -52,7 +55,7 @@ def planner_config(cell: Cell) -> dict:
 @dataclasses.dataclass
 class Run:
     setup_s: float
-    window_s: float
+    window_s: float  # the window's seconds, less the harness's copies of the checked steps
     step_s: list  # each window step's seconds, start to the end of its readback
     step_t: list  # each window step's index in its episode (0: an episode's first)
     enqueue_s: list  # inside control_step
@@ -63,9 +66,26 @@ class Run:
     readings: dict
     limits_rows: list
     correct: bool
-    checked: list  # the StepRecords checked
+    checked: list  # the StepRecords checked, on the host
+    executed: Executed  # the executed step of every window step that did not fail, on the host
     config: dict  # the configuration as run
     check_s: float  # seconds the correctness check took, after the window
+
+
+def failed_steps(light: list) -> torch.Tensor:
+    """Per window step, whether it failed: the program froze the robot's
+    advance (the state did not advance in time: the physics step diverged),
+    or the state or the plan came back non-finite or past EXPLODED."""
+    if not light:
+        return torch.zeros(0, dtype=torch.bool)
+    t_in = torch.stack([ps_in.time.reshape(-1)[0] for _, _, ps_in, _, _, _ in light])
+    t_out = torch.stack([ps_out.time.reshape(-1)[0] for _, _, _, ps_out, _, _ in light])
+    out = torch.stack([
+        torch.cat([ps_out.qpos.reshape(-1), ps_out.qvel.reshape(-1), Y_out.reshape(-1)])
+        for _, _, _, ps_out, _, Y_out in light
+    ])
+    sane = (torch.isfinite(out) & (out.abs() < EXPLODED)).all(-1)
+    return ((t_out <= t_in) | ~sane).cpu()
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
@@ -93,7 +113,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     n_frames = int(round(float(cfg["dt"]) / float(cfg["timestep"])))
     nu = mbdpi.nu
     eps_shape = lambda nd: (nd, dial_config.Nsample, dial_config.Hnode + 1, nu)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    peak = (lambda: int(torch.cuda.max_memory_allocated(device))) if on_card else (lambda: 0)
 
     generator = torch.Generator(device=device).manual_seed(step_seed(seed, 1 << 40))
     state = env.reset(generator)
@@ -102,9 +124,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     episode = int(dial_config.n_steps)
     loop = {"state": state, "Y": Y0, "t": 0, "g": 0}
 
-    def step(records=None, spans=None, calls=None):
-        """One control step; ``calls``, where given, collects each call of
-        the env's physics step (its state, its control, its products)."""
+    nx = state.pipeline_state.qpos.shape[-1] + state.pipeline_state.qvel.shape[-1]
+    loop["last"] = None  # the robot's state as the last readback gave it
+
+    def step(light=None, spans=None, calls=None):
+        """One control step. ``light`` collects each step's (t, draw, input
+        and output pipeline state, input and output plan); ``calls``, where
+        given, each call of the env's physics step (its state, its control,
+        its products). Returns the step's end and (levels, plan in, plan
+        out, info, whether it failed by its readback)."""
         if calls is not None:
             inner = env.pipeline_step
 
@@ -116,7 +144,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
             env.pipeline_step = pipeline_step  # the instance's, for this step alone
         t0 = time.perf_counter()
         if loop["t"] == episode:
-            loop.update(state=env.reset(generator), Y=Y0, t=0)
+            loop.update(state=env.reset(generator), Y=Y0, t=0, last=None)
         t, g = loop["t"], loop["g"]
         nd = dial_config.Ndiffuse_init if t == 0 else dial_config.Ndiffuse
         s_in, Y_in = loop["state"], loop["Y"]
@@ -124,16 +152,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         t1 = time.perf_counter()
         s_out, Y_out, info = mbdpi.control_step(s_in, Y_in, nd, eps)
         t2 = time.perf_counter()
-        pack_telemetry(s_out, Y_in[0], info).cpu().numpy()
+        x = pack_telemetry(s_out, Y_in[0], info).cpu().numpy()[:nx]
         t3 = time.perf_counter()
+        last = loop["last"]
+        broke = bool(not np.isfinite(x).all() or np.abs(x).max() >= EXPLODED
+                     or (last is not None and np.array_equal(x, last)))
         if calls is not None:
             del env.pipeline_step
-        if records is not None:
-            records.append((t, g, nd, Y_in, s_out, Y_out, info, calls))
+        if light is not None:
+            light.append((t, g, s_in.pipeline_state, s_out.pipeline_state, Y_in, Y_out))
         if spans is not None:
             spans.append((t3 - t0, t2 - t1, t3 - t2))
-        loop.update(state=s_out, Y=Y_out, t=t + 1, g=g + 1)
-        return t3
+        loop.update(state=s_out, Y=Y_out, t=episode if broke else t + 1, g=g + 1, last=x)
+        return t3, (nd, Y_in, Y_out, info, broke)
 
     for _ in range(WARMUP_STEPS):
         step()
@@ -141,18 +172,40 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     setup_s = time.perf_counter() - t_start
 
     # the checked steps, drawn from the seed among the window's first
-    # ``check_within``; each keeps its physics calls
+    # ``check_within``. A drawn step that cannot be judged (an episode's
+    # first, a failed step, or one whose rollouts all blew up in the
+    # program) passes its turn to the next step. Each checked step keeps
+    # its physics calls, which leave the device after the step: the clock
+    # stops while they do, and the memory peak leaves that step out, so
+    # neither reads the check's copies
     rng = np.random.default_rng([seed % (1 << 64), 1])
     within = int(cell.traffic["check_within"])
     picked = set(rng.choice(within, size=min(int(cell.traffic["check_steps"]), within), replace=False).tolist())
-    records, spans = [], []
+    light, spans, checked = [], [], []
+    due = 0  # drawn steps not yet checked
+    mem = peak()
+    paused = 0.0
     w0 = time.perf_counter()
     while True:
-        end = step(records, spans, [] if len(records) in picked else None)
-        if end - w0 >= seconds:
+        due += len(light) in picked
+        calls = [] if due else None
+        if calls is not None:
+            mem = max(mem, peak())
+        end, (nd, Y_in, Y_out, info, broke) = step(light, spans, calls)
+        if calls is not None:
+            t, g = light[-1][:2]
+            rollouts = nd * (dial_config.Nsample + 1)
+            if t > 0 and not broke and int(info["n_dropped"].sum()) < rollouts:
+                checked.append(StepRecord.of(t, g, nd, Y_in, Y_out, info, calls))
+                due -= 1
+            del calls, info
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            paused += time.perf_counter() - end
+        if end - w0 - paused >= seconds:
             break
-    window_s = end - w0
-    mem = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
+    window_s = end - w0 - paused
+    mem = max(mem, peak())
 
     # the traced stretch follows the window: the profiler's hooks would
     # slow the host in the steps after it
@@ -160,25 +213,29 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     if trace:
         from port_bench.harness.trace import trace_steps
 
-        traced = trace_steps(env, n_frames, step, int(cell.traffic["trace_steps"]))
+        traced = trace_steps(env, n_frames, lambda: step(), int(cell.traffic["trace_steps"]))
 
-    finite = torch.stack([
-        torch.isfinite(r[5]).all() & torch.isfinite(r[4].pipeline_state.qpos).all()
-        & torch.isfinite(r[4].pipeline_state.qvel).all() for r in records
-    ])
-    failed = int((~finite).sum())
-    step_t = [r[0] for r in records]
+    bad = failed_steps(light)
+    failed = int(bad.sum())
+    step_t = [r[0] for r in light]
+    ok = [r for r, b in zip(light, bad.tolist()) if not b]
+    rows = lambda xs: torch.cat(xs).detach().cpu() if xs else torch.zeros(0)  # B = 1 states -> (steps, n)
+    executed = Executed(
+        t=[r[0] for r in ok],
+        qpos_in=rows([r[2].qpos for r in ok]), qvel_in=rows([r[2].qvel for r in ok]),
+        Y_in=torch.stack([r[4] for r in ok]).detach().cpu() if ok else torch.zeros(0),
+        qpos_out=rows([r[3].qpos for r in ok]), qvel_out=rows([r[3].qvel for r in ok]),
+    )
 
-    # everything of the program but the checked steps goes
-    checked = [_record(r) for r in records if r[7] is not None]
-    del records, loop, state, mbdpi, env
+    # everything of the program goes before the reference runs
+    del light, ok, loop, state, mbdpi, env
     gc.collect()
-    if device.type == "cuda":
+    if on_card:
         torch.cuda.empty_cache()
 
     c0 = time.perf_counter()
     judge = Judge(cfg, dial_config.Nsample, device)
-    readings = [{"reset": judge.reset_gap(*reset)}]
+    readings = [{"reset": judge.reset_gap(*reset)}, judge.advance_readings(executed)]
     for rec in checked:
         eps = draw_eps(seed, rec.draw, eps_shape(rec.n_diffuse), device, dtype)
         readings.append(judge.readings(rec, eps))
@@ -186,17 +243,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     readings["steps_checked"] = float(len(checked))
     check_s = time.perf_counter() - c0
     correct, rows = verdict(readings, cell.limits)
-    correct = correct and failed == 0 and len(checked) == len(picked)
+    # a failed step is counted in ``failed`` (the plain reference's physics
+    # diverges from the same state too: PERF.md, section 7), and is not
+    # judged; every drawn step has to have been checked
+    correct = correct and len(checked) == len(picked)
     return Run(
         setup_s=setup_s, window_s=window_s, step_s=[s[0] for s in spans], step_t=step_t,
         enqueue_s=[s[1] for s in spans], readback_s=[s[2] for s in spans], failed=failed,
         memory_peak_bytes=mem, traced=traced, readings=readings, limits_rows=rows, correct=correct,
-        checked=checked, config=cfg, check_s=check_s,
-    )
-
-
-def _record(r) -> StepRecord:
-    t, g, nd, Y_in, s_out, Y_out, info, calls = r
-    return StepRecord(
-        t=t, draw=g, n_diffuse=nd, Y_in=Y_in, Y_out=Y_out, rews=info["rews"], xbar=info["xbar"], calls=calls,
+        checked=checked, executed=executed, config=cfg, check_s=check_s,
     )

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .spline import interp_matrix
-from .tasks import State, Task
+from .task import BaseTask as Task, State
 
 
 class Planner:

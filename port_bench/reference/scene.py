@@ -1,8 +1,9 @@
 """A compiled scene's constants, loaded from its ``.npz`` file.
 
-The two scenes of the benchmark's configurations are kept beside this file
-(``scenes/``), frozen: a copy of the compiled MuJoCo scenes the port ships,
-so a later change of the port's scene files shows as a disagreement.
+The scenes of the benchmark's configurations are kept beside this file
+(``scenes/``, one file each, named by its task), frozen: a copy of the
+compiled MuJoCo scenes the port ships, so a later change of the port's
+scene files shows as a disagreement.
 Attribute names are ``mujoco.MjModel``'s.
 """
 

@@ -1,5 +1,5 @@
 """The frozen reference held to the port's plain path on the CPU in float64,
-at a small batch, for both scenes: the reset, the physics step with the
+at a small batch, for the scene of every configuration: the reset, the physics step with the
 task's reward, and one annealing level (rollouts, rewards and the
 softmax-weighted update of the plan and of the body positions). The
 reference itself imports nothing of the port."""
@@ -14,10 +14,11 @@ import torch
 
 from port_bench.harness.cells import BENCH_DIR, ROOT
 from port_bench.reference.planner import Planner
-from port_bench.reference.tasks import State, make_task
+from port_bench.reference.task import State
+from port_bench.reference.tasks import make_task
 
 F64 = torch.float64
-CONFIGS = ("allegro_reorient", "go2_crate_climb")
+CONFIGS = tuple(sorted(f[:-5] for f in os.listdir(os.path.join(BENCH_DIR, "configs")) if f.endswith(".json")))
 
 
 def config(name, **planner):
@@ -103,9 +104,9 @@ def test_one_level_and_its_update(name):
 
 
 def test_update_guards_non_finite_rollouts():
-    cfg = config("go2_crate_climb", Nsample=3, Hsample=4, Hnode=2)
+    cfg = config("allegro_reorient", Nsample=3, Hsample=4, Hnode=2)
     pl = Planner(cfg, make_task(cfg, "cpu", F64), 3)
-    Y0s = torch.arange(4 * 3 * 12, dtype=F64).reshape(4, 3, 12) / 100.0
+    Y0s = torch.arange(4 * 3 * 16, dtype=F64).reshape(4, 3, 16) / 100.0
     xss = torch.ones(4, 5, 2, 3, dtype=F64)
     rews = torch.tensor([1.0, float("nan"), 0.5, float("inf")], dtype=F64)
     Ybar, xbar, dropped = pl.update(rews, Y0s, xss)
@@ -117,7 +118,8 @@ def test_update_guards_non_finite_rollouts():
 def test_reference_imports_nothing_of_the_program():
     code = (
         "import sys; sys.path.insert(0, %r);"
-        "import port_bench.reference.tasks, port_bench.reference.planner, port_bench.harness.check, port_bench.harness.counts;"
+        "import port_bench.reference.tasks, port_bench.reference.task, port_bench.reference.planner, port_bench.harness.check, port_bench.harness.counts;"
+        "port_bench.reference.tasks.task_class('allegro_reorient');"
         "print(sorted({m.split('.')[0] for m in sys.modules} & {'dial_mpc_tpu_torch', 'dial_mpc_tpu', 'jax', 'jaxlib', 'flax'}))"
     ) % ROOT
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
