@@ -9,10 +9,11 @@ localization registry and the real-robot host's refusal without its SDK.
 CPU only (``device="cpu"``), float64 unless said otherwise. The port's own
 buses have segment names of this run (``shm.run_prefix``), created with
 ``reclaim=False``: no other run's bus is met or taken over. Where the JAX
-package's bus or publisher takes part (the interop cases, the publisher
-against the JAX one) the names are the fixed ones, which the JAX bus alone
-knows; there a port creator refuses segments that exist, so a run of
-tests/test_deploy.py beside this one makes those tests fail, never cross.
+package's bus takes part (the interop cases) the names are the fixed ones,
+which the JAX bus alone knows; there a port creator refuses segments that
+exist, so a run of tests/test_deploy.py beside this one makes those tests
+fail, never cross. The JAX publisher's ticks are stored data
+(tests/reference_utils.py), made on a bus of the fixed names.
 
 Run with:  python -m pytest tests/test_torch_deploy.py -q
 """
@@ -33,6 +34,8 @@ from dial_mpc_tpu.core.dial_config import DialConfig as JaxDialConfig
 from dial_mpc_tpu.deploy.planner_proc import MBDPublisher as JaxMBDPublisher
 from dial_mpc_tpu.deploy.shm import ShmBus as JaxShmBus
 from dial_mpc_tpu.utils.io_utils import load_dataclass_from_dict as jax_load_dataclass
+
+from tests import reference_utils
 
 import dial_mpc_tpu_torch.envs as torch_envs
 from dial_mpc_tpu_torch.core.dial_config import DialConfig
@@ -216,16 +219,20 @@ def _run_schedule(pub, bus, states, wrap):
     return seen
 
 
-@pytest.fixture(scope="module")
-def schedule_runs():
-    """The JAX publisher and the port's (float64, the JAX draws injected)
-    through the same three ticks on one bus."""
+def _measured_inputs(states):
+    return {f"{k}{tick}": v for tick, (q, qd) in enumerate(states) for k, v in (("q", q), ("qd", qd))}
+
+
+def jax_schedule_reference():
+    """The JAX publisher through the three ticks of SCHEDULE on a bus of the
+    fixed names, the only ones it knows (tests/reference_data/
+    deploy_schedule.npz): what each tick's solve gave (Y, packed), what it
+    left on the bus, and init_state then update_state at each tick's state."""
     cfgd = _deploy_config(**SMALL)
-    cfg, env_cfg, env = _port(cfgd)
+    _, _, env = _port(cfgd)
     jcfg, jenv_cfg, jenv = _jax_side(cfgd)
     states = _measured_states(env, len(SCHEDULE))
-    draws = _jax_tick_draws(cfg, env.action_size)
-    bus = _bus_for(env, cfg, prefix="")  # the JAX publisher knows the fixed names only
+    bus = _bus_for(env, jcfg, prefix="")
     try:
         jpub = JaxMBDPublisher(jenv, jenv_cfg, jcfg)
 
@@ -234,12 +241,35 @@ def schedule_runs():
                 fn = getattr(p, name)
                 setattr(p, name, lambda *a, fn=fn: after(tuple(np.asarray(x) for x in fn(*a))))
 
-        jax_seen = _run_schedule(jpub, bus, states, wrap_jax)
-        jax_bus = {name: np.array(getattr(bus, name)) for name in SEGMENTS}
-        jstates = [jpub.update_state(jpub.init_state(*states[0]), *s, t) for s, t in zip(states, SCHEDULE)]
+        seen = _run_schedule(jpub, bus, states, wrap_jax)
+        out = {"in." + k: v for k, v in _measured_inputs(states).items()}
+        out.update({f"bus.{name}": np.array(getattr(bus, name)) for name in SEGMENTS})
+        for tick, ((Y, _, packed), s, t) in enumerate(zip(seen, states, SCHEDULE)):
+            jst = jpub.update_state(jpub.init_state(*states[0]), *s, t)
+            out.update({f"{tick}.Y": Y, f"{tick}.packed": packed, f"{tick}.qpos": jst.pipeline_state.qpos,
+                        f"{tick}.qvel": jst.pipeline_state.qvel, f"{tick}.step": jst.info["step"],
+                        f"{tick}.obs": jst.obs})
         jpub.close()
+    finally:
+        bus.close()
+    return {k: np.asarray(v) for k, v in out.items()}
 
-        pub = MBDPublisher(env, env_cfg, cfg)
+
+@pytest.fixture(scope="module")
+def schedule_runs():
+    """The JAX publisher (stored data) and the port's (float64, the JAX draws
+    injected) through the same three ticks on a bus."""
+    cfgd = _deploy_config(**SMALL)
+    cfg, env_cfg, env = _port(cfgd)
+    states = _measured_states(env, len(SCHEDULE))
+    ref = reference_utils.load("deploy_schedule", **_measured_inputs(states))
+    jax_seen = [(ref[f"{tick}.Y"], None, ref[f"{tick}.packed"]) for tick in range(len(SCHEDULE))]
+    jax_bus = {name: ref[f"bus.{name}"] for name in SEGMENTS}
+    jstates = [reference_utils.nested(ref, str(tick)) for tick in range(len(SCHEDULE))]
+    draws = _jax_tick_draws(cfg, env.action_size)
+    bus = _bus_for(env, cfg)
+    try:
+        pub = MBDPublisher(env, env_cfg, cfg, bus_prefix=PREFIX)
         shifts = []
 
         def wrap_port(p, after):
@@ -323,12 +353,12 @@ def test_init_and_update_state_match_jax(schedule_runs, tick):
     q, qd = schedule_runs["measured"][tick]
     assert st.pipeline_state.qpos.dtype == F64 and st.pipeline_state.qpos.shape == (1, q.shape[0])
     np.testing.assert_array_equal(st.pipeline_state.qpos[0].numpy(), q.astype(np.float64))
-    np.testing.assert_array_equal(st.pipeline_state.qvel[0].numpy(), np.asarray(jst.pipeline_state.qvel, np.float64))
-    np.testing.assert_array_equal(st.pipeline_state.qpos[0].numpy(), np.asarray(jst.pipeline_state.qpos, np.float64))
-    assert st.info["step"].dtype == torch.int32 and st.info["step"].tolist() == [int(jst.info["step"])]
+    np.testing.assert_array_equal(st.pipeline_state.qvel[0].numpy(), np.asarray(jst["qvel"], np.float64))
+    np.testing.assert_array_equal(st.pipeline_state.qpos[0].numpy(), np.asarray(jst["qpos"], np.float64))
+    assert st.info["step"].dtype == torch.int32 and st.info["step"].tolist() == [int(jst["step"])]
     assert int(st.info["step"][0]) == int(SCHEDULE[tick] / 0.02)
     # init_state's observation (update_state runs no forward pass, as the reference)
-    np.testing.assert_allclose(st.obs[0].numpy(), np.asarray(jst.obs), atol=1e-5)
+    np.testing.assert_allclose(st.obs[0].numpy(), np.asarray(jst["obs"]), atol=1e-5)
 
 
 def test_update_state_runs_no_forward_pass(schedule_runs):
@@ -554,6 +584,7 @@ print("SIM_DONE", sim.t)
 """
 
 
+@pytest.mark.timeout(300)  # its waits: 60 s for the server's bus, 120 s for its exit, the 60 ticks between
 def test_sim2sim_sync_integration():
     """The port's sim server (MuJoCo, sync mode) in a subprocess and the
     port's publisher on the CPU over the real bus, held to what

@@ -29,6 +29,7 @@ from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.envs.base_env import expand_state
 from dial_mpc_tpu_torch.utils import convert
 from dial_mpc_tpu_torch.utils.io_utils import get_example_path, load_dataclass_from_dict
+from tests import reference_utils
 from tests.test_torch_planner import OVERRIDES, _jax_data, _jax_draws, _jax_info
 
 F64 = torch.float64
@@ -334,18 +335,16 @@ def _jax_float64_run(example):
         return run_case(example)
 
 
-_F64_RUNS = {}
-
-
-def _jax_float64_run_apart(example, tmp_dir):
+def jax_float64_reference(example):
     """_jax_float64_run in a process of its own, on the CPU in float64 as the
     goldens' run (tests/conftest.py) but without the persistent compilation
     cache: XLA:CPU (jax 0.9.0) aborted reading back the entries this run
-    writes."""
+    writes (tests/reference_data/planner_float64_<example>.npz)."""
     import subprocess
     import sys
+    import tempfile
 
-    if example not in _F64_RUNS:
+    with tempfile.TemporaryDirectory() as tmp_dir:
         out = os.path.join(tmp_dir, example + ".npz")
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         code = ("import sys, numpy as np, jax; sys.path.insert(0, %r); "
@@ -356,18 +355,17 @@ def _jax_float64_run_apart(example, tmp_dir):
         r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root, env=env)
         assert r.returncode == 0, r.stderr[-4000:]
         with np.load(out) as z:
-            _F64_RUNS[example] = {k: z[k] for k in z.files}
-    return _F64_RUNS[example]
+            return {**{"in." + k: v for k, v in OVERRIDES.items()}, **{k: z[k] for k in z.files}}
 
 
 @pytest.mark.parametrize("what,tol", [("Y", 2e-5), ("reward", 5e-6), ("qpos", 2e-6)])
 @pytest.mark.parametrize("example", ["unitree_h1_loco", "unitree_go2_crate_climb"])
-def test_control_step_matches_float64_reference(example, what, tol, tmp_path_factory):
+def test_control_step_matches_float64_reference(example, what, tol):
     """The golden Y tolerance of H1 loco and the crate climb (GOLDEN_Y_TOL)
     rests on an argument: the goldens' float32 rewards, amplified by the
-    softmax. Measured here: the JAX planner run with float64 physics, and the
-    port (float64) held to it at the trot golden's tolerances."""
-    ref = _jax_float64_run_apart(example, str(tmp_path_factory.getbasetemp()))[what]
+    softmax. Measured here: the JAX planner run with float64 physics (stored
+    data), and the port (float64) held to it at the trot golden's tolerances."""
+    ref = reference_utils.load(f"planner_float64_{example}", **OVERRIDES)[what]
     got = _golden_run(example)[what]
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=tol)

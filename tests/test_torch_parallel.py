@@ -3,10 +3,12 @@ the JAX package's, over process groups of 1, 2 and 4 gloo ranks.
 
 The port's ranks are processes: each case is pickled into a directory, this
 file is run as a script once per rank (``_rank_main``), and the ranks write
-what they planned there. Every wait has a timeout, so no rank can hang the
-suite. The JAX side runs in the test process on the conftest's 8-device CPU
-mesh; its per-sample draws (fold the level key by the global sample index)
-are rebuilt here and injected into the port as ``eps``.
+what they planned there. The ranks of a run share one deadline, shorter
+than the test's time limit (the root conftest.py), and are killed on the way
+out, so no rank can hang the suite. The JAX side, on the conftest's 8-device
+CPU mesh, is stored data (tests/reference_utils.py); its per-sample draws
+(fold the level key by the global sample index) are rebuilt there and
+injected into the port as ``eps``.
 
 Config of tests/test_sharded.py: ``unitree_go2_walk`` with ``kd=0.0``,
 Nsample 16, Hsample 16, Hnode 4, two annealing levels. The port runs in
@@ -23,6 +25,7 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -33,13 +36,14 @@ from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
 from dial_mpc_tpu_torch.parallel import SampleMesh, ShardedMBDPI, global_sample_mesh, init_distributed
 from dial_mpc_tpu_torch.parallel import distributed
+from tests import reference_utils
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
 CFG = dict(env_name="unitree_go2_walk", Nsample=16, Hsample=16, Hnode=4, Ndiffuse=2)
 LEVELS = 2
 NU, NODES = 12, CFG["Hnode"] + 1
-RANK_TIMEOUT = 300  # s, a rank's whole run; a few seconds each here
+RANK_TIMEOUT = 120  # s, all ranks of a run together; a few seconds each here
 POISON_STEP = 3  # the rollout step at which a case's marked rows turn NaN
 NO_POISON = (1.0, 0.0, -1.0)  # (lo, hi, at): an empty range
 
@@ -147,8 +151,9 @@ def spawn_ranks(case, world):
         ]
         logs = []
         try:
+            deadline = time.monotonic() + RANK_TIMEOUT
             for p in procs:
-                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+                logs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -167,18 +172,43 @@ def spawn_ranks(case, world):
 # the JAX side
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_ref():
+EDGE_Y0 = np.random.default_rng(5).uniform(-0.3, 0.3, (NODES, NU))
+
+
+def _edge_marks(eps, step0):
+    """Three marks on a random plan (EDGE_Y0): the sample with the largest
+    first control at the marked step (one NaN rollout); every row (all
+    rollouts NaN: the plan is kept); the mean row alone (its controls are
+    the plan's, which no sample's equals). Also the marked sample."""
+    cfg, env = _port_env()
+    pl = MBDPI(cfg, env)
+    factors = pl.diffuse_factors(LEVELS)
+    us = pl.node2u(pl.sample_nodes(pl.shift(torch.tensor(EDGE_Y0, dtype=F64)), factors[0], eps[0]))
+    a = us[:, POISON_STEP, 0].numpy()
+    at = step0 + 1 + POISON_STEP  # the advance, then POISON_STEP rollout steps
+    top = np.sort(a[:-1])
+    assert top[-1] - top[-2] > 1e-3, "the largest sample control must stand clear"
+    assert np.abs(a[:-1] - a[-1]).min() > 1e-3, "no sample's control may equal the mean row's"
+    marks = {
+        "one_nan": (0.5 * (top[-1] + top[-2]), np.inf, at),
+        "all_nan": (-np.inf, np.inf, at),
+        "nan_mean": (a[-1] - 1e-6, a[-1] + 1e-6, at),
+    }
+    return marks, int(np.argmax(a[:-1]))
+
+
+def jax_sharded_reference():
     """The JAX ShardedMBDPI on the 8-device mesh with the marking env (one
-    compile serves every case: the marks are state data), the reset state,
-    and a function that runs a case on both sides."""
+    compile serves every case: the marks are state data)
+    (tests/reference_data/parallel_sharded.npz): the reset state, the
+    planner's draws, and one control step from the zero plan without marks
+    and from EDGE_Y0 with each of _edge_marks."""
     import jax
     import jax.numpy as jnp
 
     import dial_mpc_tpu.envs as jax_envs
     from dial_mpc_tpu.core.dial_config import DialConfig as JaxDialConfig
     from dial_mpc_tpu.parallel import ShardedMBDPI as JaxSharded, make_sample_mesh as jax_mesh
-    from dial_mpc_tpu_torch.utils import convert
 
     class _JaxMarked:
         """The JAX env with ``_Marked``'s rule; the marks ride in the state's
@@ -213,12 +243,9 @@ def jax_ref():
             out[f.name] = leaves(v) if dataclasses.is_dataclass(v) else (np.asarray(v) if v is not None else None)
         return out
 
-    info = {k: (bool(v) if k == "randomize_target" else np.asarray(v)) for k, v in state0.info.items()}
-    port_state = convert.state_from_numpy(
-        dict(pipeline_state=leaves(state0.pipeline_state), obs=np.asarray(state0.obs),
-             reward=np.asarray(state0.reward), done=np.asarray(state0.done), info=info),
-        dtype=F64, batched=False,
-    )
+    state = dict(pipeline_state=leaves(state0.pipeline_state), obs=state0.obs, reward=state0.reward,
+                 done=state0.done, info=dict(state0.info))
+    out = reference_utils.flat("state", state)
 
     # the JAX planner's draws, level by level (parallel/sharded.py:80-88, :169)
     eps, rng = [], rng0
@@ -227,15 +254,34 @@ def jax_ref():
         keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(level_key, jnp.arange(cfg.Nsample))
         eps.append(np.asarray(jax.vmap(lambda k: jax.random.normal(k, (NODES, NU)))(keys)))
         rng = jax.random.fold_in(rng, 1)
-    eps = torch.tensor(np.stack(eps), dtype=F64)
+    out["eps"] = np.stack(eps)
+    out["step0"] = np.asarray(state0.info["step"])
 
-    def run(Y0, poison=NO_POISON):
+    def run(prefix, Y0, poison):
         st = state0.replace(info={**state0.info, "poison": jnp.asarray(poison, jnp.float64)})
         st, Y, _, info = planner.control_step(st, jnp.asarray(Y0), rng0, LEVELS)
-        return dict(Y=np.asarray(Y), qpos=np.asarray(st.pipeline_state.qpos),
-                    **{k: np.asarray(v) for k, v in info.items()})
+        reference_utils.flat(prefix, dict(Y=Y, qpos=st.pipeline_state.qpos, **info), out)
 
-    return dict(run=run, state=port_state, eps=eps, step0=int(state0.info["step"]))
+    run("base", np.zeros((NODES, NU)), NO_POISON)
+    marks, _ = _edge_marks(torch.tensor(out["eps"], dtype=F64), int(out["step0"]))
+    for name, mark in marks.items():
+        out[f"in.mark_{name}"] = np.asarray(mark)
+        run(name, EDGE_Y0, mark)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX side (stored data): the reset state as the port's state, the
+    planner's draws, and its control step of each case."""
+    from dial_mpc_tpu_torch.utils import convert
+
+    stored = reference_utils.load("parallel_sharded")
+    state = reference_utils.nested(stored, "state")
+    state["info"]["randomize_target"] = bool(state["info"]["randomize_target"])
+    port_state = convert.state_from_numpy(state, dtype=F64, batched=False)
+    return dict(stored=stored, state=port_state, eps=torch.tensor(stored["eps"], dtype=F64),
+                step0=int(stored["step0"]))
 
 
 def _case(jax_ref, Y0, poison=NO_POISON, **more):
@@ -248,7 +294,7 @@ def base_runs(jax_ref):
     """The zero plan, no marks: the JAX result, and the port's on 1, 2, 4 ranks
     (also from the generator's draws; at one rank also through MBDPI)."""
     Y0 = np.zeros((NODES, NU))
-    ref = jax_ref["run"](Y0)
+    ref = reference_utils.nested(jax_ref["stored"], "base")
     runs = {w: spawn_ranks(_case(jax_ref, Y0, own_draws=True, mbdpi=w == 1), w) for w in (1, 2, 4)}
     return ref, runs
 
@@ -320,29 +366,14 @@ def test_one_rank_matches_mbdpi(base_runs, what):
 
 @pytest.fixture(scope="module")
 def edge_runs(jax_ref):
-    """Three marks on a random plan (2 ranks): the sample with the largest
-    first control at the marked step (one NaN rollout); every row (all
-    rollouts NaN: the plan is kept); the mean row alone (its controls are
-    the plan's, which no sample's equals)."""
-    Y0 = np.random.default_rng(5).uniform(-0.3, 0.3, (NODES, NU))
-    cfg, env = _port_env()
-    pl = MBDPI(cfg, env)
-    factors = pl.diffuse_factors(LEVELS)
-    us = pl.node2u(pl.sample_nodes(pl.shift(torch.tensor(Y0, dtype=F64)), factors[0], jax_ref["eps"][0]))
-    a = us[:, POISON_STEP, 0].numpy()
-    at = jax_ref["step0"] + 1 + POISON_STEP  # the advance, then POISON_STEP rollout steps
-    top = np.sort(a[:-1])
-    assert top[-1] - top[-2] > 1e-3, "the largest sample control must stand clear"
-    assert np.abs(a[:-1] - a[-1]).min() > 1e-3, "no sample's control may equal the mean row's"
-    marks = {
-        "one_nan": (0.5 * (top[-1] + top[-2]), np.inf, at),
-        "all_nan": (-np.inf, np.inf, at),
-        "nan_mean": (a[-1] - 1e-6, a[-1] + 1e-6, at),
-    }
+    """_edge_marks on EDGE_Y0 (2 ranks), each against the JAX planner with
+    the same marks."""
+    marks, worst = _edge_marks(jax_ref["eps"], jax_ref["step0"])
+    stored = reference_utils.load("parallel_sharded", **{f"mark_{name}": np.asarray(m) for name, m in marks.items()})
     runs = {}
     for name, mark in marks.items():
-        runs[name] = (jax_ref["run"](Y0, mark), spawn_ranks(_case(jax_ref, Y0, poison=mark), 2), int(np.argmax(a[:-1])))
-    return Y0, runs
+        runs[name] = (reference_utils.nested(stored, name), spawn_ranks(_case(jax_ref, EDGE_Y0, poison=mark), 2), worst)
+    return EDGE_Y0, runs
 
 
 @pytest.mark.parametrize("case", ["one_nan", "all_nan", "nan_mean"])
@@ -480,8 +511,9 @@ def test_runner_mesh_branch_writes_artifacts_on_rank_zero(tmp_path):
             cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
+        deadline = time.monotonic() + RANK_TIMEOUT
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
     finally:
         for p in procs:
             if p.poll() is None:

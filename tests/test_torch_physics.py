@@ -1,9 +1,11 @@
 """PyTorch physics port against the JAX package, CPU MuJoCo and itself.
 
 Everything runs on the CPU at float64 (``device="cpu"``). Inputs are made
-from a seed with numpy and handed to both sides; the JAX side runs as the
-repo's own tests run it (tests/conftest.py: CPU, x64, XLA engine), with one
-jitted batched ``forward.step`` serving every comparison.
+from a seed with numpy and handed to both sides. The JAX side's outputs on
+these fixed inputs are stored data (tests/reference_utils.py), made as the
+repo's own tests run it (tests/conftest.py: CPU, x64, XLA engine) with one
+jitted batched ``forward.step`` a scene; where the JAX side is fed the
+port's own outputs it runs here.
 
 Run with:  python -m pytest tests/test_torch_*.py -q
 """
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import reference_utils
 from tests.conftest import load_mj
 from dial_mpc_tpu.physics import engine_pallas
 from dial_mpc_tpu.physics import maths as jmaths
@@ -106,35 +109,90 @@ def _ctrls(key, mj, rng, start, n=None):
     return np.stack([float_checks.random_ctrl(key, mj, rng, start) for _ in range(n)])
 
 
-_BATCH_CACHE = {}
-
-
-def _scene(key):
-    """Both models, a contact-rich batch settled by the JAX step, and the
-    jitted batched JAX step (one per scene)."""
-    if key in _BATCH_CACHE:
-        return _BATCH_CACHE[key]
-    mj, jm, tm = _models(key)
+def _scene_inputs(key):
+    """The batch of a scene: start states and the ctrls of the settling steps
+    and of the tests, drawn from one seed."""
+    mj = _models(key)[0]
     rng = np.random.default_rng(0)
     cm = compiled_model.snapshot(mj)
     qpos = scene_cases.start_qpos(key, cm, B, rng)
     qvel = scene_cases.start_qvel(key, cm, B, rng)
+    settle = np.stack([_ctrls(key, mj, rng, qpos) for _ in range(SETTLE)])
+    return dict(start_qpos=qpos, start_qvel=qvel, settle_ctrls=settle, ctrls=_ctrls(key, mj, rng, qpos, 20))
 
+
+# the outputs of the lean data the JAX kernel returns (engine_pallas.trim_data)
+_LEAN = ("qpos", "qvel", "site_xpos", "site_xmat", "x_pos", "x_rot", "xd_vel", "xd_ang", "contact.dist",
+         "contact.pos", "qacc")
+
+
+def jax_scene_reference(key):
+    """The JAX side of a scene (tests/reference_data/physics_<key>.npz): a
+    contact-rich batch settled by the JAX step, one jitted batched step a
+    scene (the Allegro's a sample at a time); the forward products of the
+    next step (ctrls[0]), 20 free-running steps from the settled batch, and
+    on the Go2 flat scene the lean outputs of one and two steps (ctrls[2])
+    and the lean data of the next step."""
+    inputs = _scene_inputs(key)
+    _, jm, _ = _models(key)
     d0 = jmodel.make_data(jm, dtype=jnp.float64)
     dB = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), d0)
-    dB = dataclasses.replace(dB, qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel))
+    dB = dataclasses.replace(dB, qpos=jnp.asarray(inputs["start_qpos"]), qvel=jnp.asarray(inputs["start_qvel"]))
     if key == "allegro":
         step_b = sample_by_sample(jm)
     else:
         step_b = jax.jit(jax.vmap(lambda d, c: jax_step(jm, jreplace(d, ctrl=c))))
-    start = qpos
-    for _ in range(SETTLE):
-        dB = step_b(dB, jnp.asarray(_ctrls(key, mj, rng, start)))
+    for ctrl in inputs["settle_ctrls"]:
+        dB = step_b(dB, jnp.asarray(ctrl))
     assert bool(jnp.isfinite(dB.qpos).all())
-    ctrls = _ctrls(key, mj, rng, start, 20)
-    out = _BATCH_CACHE[key] = dict(key=key, mj=mj, jm=jm, tm=tm, step_b=step_b, dB=dB, ctrls=ctrls,
-                                   qpos=np.asarray(dB.qpos), qvel=np.asarray(dB.qvel))
-    return out
+    ctrls = inputs["ctrls"]
+    out = {"in." + k: v for k, v in inputs.items()}
+    out.update(qpos=dB.qpos, qvel=dB.qvel)
+    jd = step_b(dB, jnp.asarray(ctrls[0]))  # derived fields are pre-integration
+    for name, _ in _FORWARD_FIELDS:
+        out["fwd." + name] = getattr(jd, name)
+    for name in ("dist", "pos", "frame"):
+        out["contact." + name] = getattr(jd.contact, name)
+    for name in ("J", "D", "aref", "pos", "frictionloss"):
+        out["efc." + name] = getattr(jd.efc, name)
+    traj, jt = [], dB
+    for k in range(20):
+        jt = step_b(jt, jnp.asarray(ctrls[k]))
+        traj.append((jt.qpos, jt.qvel))
+    out["traj.qpos"], out["traj.qvel"] = (np.stack([np.asarray(t[i]) for t in traj]) for i in (0, 1))
+    out["traj.time"] = jt.time
+    if key == "go2":
+        trim = jax.vmap(lambda d: engine_pallas.trim_data(jm, d))
+        for n_steps in (1, 2):
+            jl = dB
+            for _ in range(n_steps):
+                jl = step_b(jl, jnp.asarray(ctrls[2]))
+            lean = trim(jl)
+            for name in _LEAN:
+                out[f"lean{n_steps}.{name}"] = np.asarray(_attr(lean, name)).reshape(B, -1)
+        reference_utils.flat("trim", _leaves(trim(jd)), out)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _attr(obj, dotted):
+    for name in dotted.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
+_BATCH_CACHE = {}
+
+
+def _scene(key):
+    """A scene's models, its batch settled by the JAX step, the ctrls of the
+    tests, and the JAX step's outputs from there (stored data)."""
+    if key not in _BATCH_CACHE:
+        inputs = _scene_inputs(key)
+        mj, _, tm = _models(key)
+        ref = reference_utils.load(f"physics_{key}", **inputs)
+        _BATCH_CACHE[key] = dict(key=key, mj=mj, tm=tm, ref=ref, ctrls=inputs["ctrls"], qpos=ref["qpos"],
+                                 qvel=ref["qvel"])
+    return _BATCH_CACHE[key]
 
 
 @pytest.fixture(scope="module")
@@ -246,22 +304,21 @@ _FORWARD_FIELDS = [
 @pytest.fixture(scope="module")
 def forward_pair(scene):
     ctrl = scene["ctrls"][0]
-    jd = scene["step_b"](scene["dB"], jnp.asarray(ctrl))  # derived fields are pre-integration
     td = tforward(scene["tm"], _tdata(scene["tm"], scene["qpos"], scene["qvel"], ctrl))
-    return scene["key"], jd, td
+    return scene["key"], scene["ref"], td
 
 
 @pytest.mark.parametrize("name,tol", _FORWARD_FIELDS)
 def test_forward_matches_jax(forward_pair, name, tol):
     _, jd, td = forward_pair
-    np.testing.assert_allclose(getattr(td, name).numpy(), np.asarray(getattr(jd, name)), atol=tol, rtol=tol)
+    np.testing.assert_allclose(getattr(td, name).numpy(), jd["fwd." + name], atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("name,tol", [("dist", 1e-9), ("pos", 1e-9), ("frame", 1e-9)])
 def test_contact_matches_jax(forward_pair, name, tol):
     """Slot by slot: the tie order of the box pairs is the reference's."""
     key, jd, td = forward_pair
-    np.testing.assert_allclose(getattr(td.contact, name).numpy(), np.asarray(getattr(jd.contact, name)), atol=tol)
+    np.testing.assert_allclose(getattr(td.contact, name).numpy(), jd["contact." + name], atol=tol)
     assert (td.contact.dist < 0).any(), "the batch must be in contact"
     if key in CRATES:
         tm = _models(key)[2]
@@ -275,21 +332,20 @@ def test_constraint_rows_match_jax(forward_pair, name, tol):
     key, jd, td = forward_pair
     tm = _models(key)[2]
     assert td.efc.J.shape == (B, NEFC[key], tm.nv)
-    got, ref = getattr(td.efc, name).numpy(), np.asarray(getattr(jd.efc, name))
+    got, ref = getattr(td.efc, name).numpy(), jd["efc." + name]
     np.testing.assert_allclose(got, ref, atol=tol, rtol=1e-9)
 
 
 def test_step_trajectory_matches_jax(scene):
     """20 free-running steps from the contact-rich batch: 1e-9 qpos, 1e-7 qvel."""
-    jd = scene["dB"]
+    ref = scene["ref"]
     td = _tdata(scene["tm"], scene["qpos"], scene["qvel"], scene["ctrls"][0])
     for k in range(20):
         ctrl = scene["ctrls"][k]
-        jd = scene["step_b"](jd, jnp.asarray(ctrl))
         td = tstep(scene["tm"], td.replace(ctrl=torch.tensor(ctrl)))
-        np.testing.assert_allclose(td.qpos.numpy(), np.asarray(jd.qpos), atol=1e-9, rtol=1e-9, err_msg=f"step {k}")
-        np.testing.assert_allclose(td.qvel.numpy(), np.asarray(jd.qvel), atol=1e-7, rtol=1e-7, err_msg=f"step {k}")
-    np.testing.assert_allclose(td.time.numpy(), np.asarray(jd.time) - SETTLE * _timestep(scene["key"]), atol=1e-12)
+        np.testing.assert_allclose(td.qpos.numpy(), ref["traj.qpos"][k], atol=1e-9, rtol=1e-9, err_msg=f"step {k}")
+        np.testing.assert_allclose(td.qvel.numpy(), ref["traj.qvel"][k], atol=1e-7, rtol=1e-7, err_msg=f"step {k}")
+    np.testing.assert_allclose(td.time.numpy(), ref["traj.time"] - SETTLE * _timestep(scene["key"]), atol=1e-12)
 
 
 # the scenes whose contact manifolds are MuJoCo's own (the reference's
@@ -345,24 +401,13 @@ _OUT_TOL = {"qpos": 1e-9, "site_xpos": 1e-9, "site_xmat": 1e-9, "x_pos": 1e-9, "
             "cdist": 1e-9, "cpos": 1e-9}
 
 
-def _jax_lean_outputs(go2, ctrl, n_steps):
-    """forward.step n_steps times + engine_pallas.trim_data, as 11 arrays."""
-    jd = go2["dB"]
-    for _ in range(n_steps):
-        jd = go2["step_b"](jd, jnp.asarray(ctrl))
-    lean = jax.vmap(lambda d: engine_pallas.trim_data(go2["jm"], d))(jd)
-    r = lambda a: np.asarray(a).reshape(B, -1)
-    return [r(lean.qpos), r(lean.qvel), r(lean.site_xpos), r(lean.site_xmat), r(lean.x_pos),
-            r(lean.x_rot), r(lean.xd_vel), r(lean.xd_ang), r(lean.contact.dist),
-            r(lean.contact.pos), r(lean.qacc)]
-
-
 @pytest.mark.parametrize("n_steps", [1, 2])
 def test_step_core_reference_matches_jax(go2, n_steps):
     ctrl = go2["ctrls"][2]
     t = lambda a: torch.tensor(a, dtype=F64)
     outs = engine_cuda.step_core_reference(go2["tm"], t(go2["qpos"]), t(go2["qvel"]), t(ctrl), n_steps)
-    refs = _jax_lean_outputs(go2, ctrl, n_steps)
+    # forward.step n_steps times + engine_pallas.trim_data, as 11 arrays
+    refs = [go2["ref"][f"lean{n_steps}.{name}"] for name in _LEAN]
     assert [tuple(o.shape) for o in outs] == [(B, n) for _, n in engine_cuda.out_specs(go2["tm"])]
     for (name, _), got, ref in zip(engine_cuda.out_specs(go2["tm"]), outs, refs):
         tol = _OUT_TOL.get(name, 1e-7)
@@ -401,7 +446,6 @@ def test_step_core_rejects_bad_inputs(go2):
         engine_cuda.step_core(go2["tm"], q, v[:3], c)
 
 
-@pytest.mark.slow
 def test_step_core_reference_matches_pallas_interpret():
     """Against the Pallas step kernel itself, in interpret mode at float64,
     with the reduced solver schedule the JAX package's kernel tests use."""
@@ -629,6 +673,10 @@ int main(int argc, char** argv) {
 }
 """
 SHARED_FILLS = (0x00, 0xFF)  # zeros, and NaN in either type
+# the host builds run a team's lanes as threads that meet at a barrier every
+# phase: on a loaded CPU a run takes many times its usual seconds (10 s to
+# 360 s seen), so these tests get more than the default limit
+HOST_RUN_LIMIT = pytest.mark.timeout(600)
 
 
 def _write_host_sources(tm, d):
@@ -712,6 +760,7 @@ def host_kernel(host_scene, tmp_path_factory):
     return _build_host_kernel(host_scene["tm"], tmp_path_factory.mktemp("host_kernel"))
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("n_steps", [1, 3])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_source_on_host_matches_plain_version(host_scene, host_kernel, dtype, n_steps):
@@ -721,6 +770,7 @@ def test_kernel_source_on_host_matches_plain_version(host_scene, host_kernel, dt
     )
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_source_with_16_lanes_matches_plain_version(go2, tmp_path_factory, dtype):
     """The team size is a compile-time constant; half a warp a sample (each
@@ -739,6 +789,7 @@ def host_kernel_prefilled(host_scene, tmp_path_factory):
     ]
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_source_reads_no_uninitialised_value(host_scene, host_kernel, host_kernel_prefilled, dtype):
     """The kernel never writes the entries of M, H, L and J that lie outside
@@ -751,6 +802,7 @@ def test_kernel_source_reads_no_uninitialised_value(host_scene, host_kernel, hos
             np.testing.assert_array_equal(_run_host_kernel(lib, host_scene, host_scene["ctrls"][5], dtype, 3, fill), plain)
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("lanes", [32, 16])
 def test_kernel_source_has_no_data_race(host_scene, host_kernel, tmp_path, lanes):
     """ThreadSanitizer over the lane-emulating host build, two samples and two
@@ -769,7 +821,7 @@ def test_kernel_source_has_no_data_race(host_scene, host_kernel, tmp_path, lanes
     _host_input(host_scene, ctrl, "float64")[:nb].tofile(tmp_path / "in.bin")
     run = subprocess.run(
         [str(tmp_path / "tsan"), str(tmp_path / "in.bin"), str(nb), str(n_steps), str(tmp_path / "out.bin")],
-        capture_output=True, text=True, timeout=600,
+        capture_output=True, text=True, timeout=300,
         env={**os.environ, "TSAN_OPTIONS": "halt_on_error=1 exitcode=66"},
     )
     if "unexpected memory mapping" in run.stderr:
@@ -839,17 +891,16 @@ def test_cholesky_matches_lapack_and_clamps():
 
 
 def test_data_from_numpy_roundtrip(go2):
-    jd = go2["step_b"](go2["dB"], jnp.asarray(go2["ctrls"][0]))
-    lean = jax.vmap(lambda d: engine_pallas.trim_data(go2["jm"], d))(jd)
-    leaves = _leaves(lean)
+    leaves = reference_utils.nested(go2["ref"], "trim")  # the JAX step's lean data, ctrls[0]
     for k in ("geom", "includemargin", "friction", "solref", "solimp", "dim"):
         leaves["contact"][k] = leaves["contact"][k][0]  # static rows carry no batch axis here
     td = convert.data_from_numpy(leaves, dtype=F64)
     assert isinstance(td, Data) and td.qpos.shape == (B, 19) and td.contact.pos.shape == (B, 4, 3)
-    np.testing.assert_array_equal(td.x_pos.numpy(), np.asarray(lean.x_pos))
+    np.testing.assert_array_equal(td.x_pos.numpy(), leaves["x_pos"])
     assert td.contact.geom.dtype == torch.int32 and td.xpos is None
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_source_pyramidal_condim6_matches_plain_version(tmp_path, dtype):
     """Condim-6 pyramids, which no shipped scene has: the Allegro scene with

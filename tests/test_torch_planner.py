@@ -27,6 +27,8 @@ from dial_mpc_tpu.physics import model as jmodel
 from dial_mpc_tpu.utils.function_utils import get_foot_step as jax_get_foot_step
 from dial_mpc_tpu.utils.spline import FixedSpline as JaxFixedSpline
 
+from tests import reference_utils
+
 import dial_mpc_tpu_torch.envs as torch_envs
 from dial_mpc_tpu_torch.core.dial_config import DialConfig
 from dial_mpc_tpu_torch.core.dial_core import MBDPI
@@ -487,15 +489,28 @@ def test_generate_jumping_sequence_matches_jax():
     np.testing.assert_allclose(q[0][0, 0].numpy(), [0.135, 0.2, 0.27], atol=1e-12)
 
 
-def test_seq_jump_reset_state(jump_planner, jax_jump_env):
+_JUMP_RESET_INFO = ("contact_targets", "contact_target_radius", "pose_target_sequence", "yaw_target_sequence", "pos_tar")
+
+
+def jax_seq_jump_reset_reference():
+    """The JAX seq-jump env's reset, PRNGKey(0) (tests/reference_data/
+    planner_seq_jump_reset.npz): its observation and the info the port's
+    reset must match."""
+    cfgd = _example_config("unitree_go2_seq_jump")
+    cfg = load_dataclass_from_dict(JaxDialConfig, cfgd)
+    env_cfg = load_dataclass_from_dict(jax_envs.get_config(cfg.env_name), cfgd, convert_list_to_array=True)
+    js = jax.jit(jax_envs.get_environment(cfg.env_name, env_cfg).reset)(jax.random.PRNGKey(0))
+    return {"obs": np.asarray(js.obs), **{"info." + k: np.asarray(js.info[k]) for k in _JUMP_RESET_INFO}}
+
+
+def test_seq_jump_reset_state(jump_planner):
     _, env, _ = jump_planner
-    _, jenv = jax_jump_env
     st = env.reset()
-    js = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
+    js = reference_utils.load("planner_seq_jump_reset")
     assert st.obs.shape == (1, 3 + 3 + 12 + 3 + 2 + 1 + 12 + 3 + 3 + 12)
-    np.testing.assert_allclose(st.obs[0].numpy(), np.asarray(js.obs), atol=1e-6)
-    for key in ("contact_targets", "contact_target_radius", "pose_target_sequence", "yaw_target_sequence", "pos_tar"):
-        np.testing.assert_allclose(st.info[key][0].numpy(), np.asarray(js.info[key]), atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(st.obs[0].numpy(), js["obs"], atol=1e-6)
+    for key in _JUMP_RESET_INFO:
+        np.testing.assert_allclose(st.info[key][0].numpy(), js["info." + key], atol=1e-6, err_msg=key)
     assert st.info["contact_stage"].dtype == torch.int32 and st.info["contact_targets"].shape == (1, 5, 4, 3)
     big = expand_state(st, 3)
     assert big.info["contact_targets"].shape == (3, 5, 4, 3) and big.info["last_ctrl"].shape == (3, 12)

@@ -3,7 +3,8 @@ package's solver (XLA route and Pallas kernel in interpret mode), CPU MuJoCo,
 and itself.
 
 Everything runs on the CPU (``device="cpu"``). Inputs are made from a seed
-with numpy and handed to both sides as arrays.
+with numpy and handed to both sides as arrays; the JAX side's outputs on them
+are stored data (tests/reference_utils.py).
 
 Run with:  python -m pytest tests/test_torch_*.py -q
 """
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import reference_utils
 from tests.conftest import load_mj
 from dial_mpc_tpu.physics import model as jmodel
 from dial_mpc_tpu.physics import solver as jsolver
@@ -67,21 +69,36 @@ def _jax_batch(jm, qpos, qvel, ctrl, dtype):
     )
 
 
-@pytest.fixture(scope="module")
-def go2_rows():
-    """Go2 flat-scene constraint rows at B = 4, float64, from the JAX forward."""
+def jax_go2_rows_reference():
+    """The JAX side of the Go2 rows (tests/reference_data/solver_go2_rows.npz):
+    the JAX forward's constraint rows, Efc, qacc and qfrc_constraint at B = 4,
+    float64, and the Pallas solver kernel's solve of those rows."""
     mj = load_mj(GO2)
     jm = jmodel.put_model(mj, dtype=jnp.float64)
-    tm = put_model(mj, device="cpu", dtype=F64)
     qpos, qvel, ctrl = _go2_states(mj)
     jd = jax.jit(jax.vmap(functools.partial(jax_forward, jm)))(_jax_batch(jm, qpos, qvel, ctrl, jnp.float64))
     rows = dict(J=jd.efc.J, D=jd.efc.D, aref=jd.efc.aref, fl=jd.efc.frictionloss, eta=jd.efc.eta,
                 M=jd.qM, qs=jd.qacc_smooth)
     rows = {k: np.asarray(v) for k, v in rows.items()}
+    key = solver_cuda.solver_key(put_model(mj, device="cpu", dtype=F64), rows["J"].shape[1])
+    xk, fk = _pallas(key, rows)
+    return {"in.qpos": qpos, "in.qvel": qvel, "in.ctrl": ctrl, **{"rows." + k: v for k, v in rows.items()},
+            **{"efc." + f.name: getattr(jd.efc, f.name) for f in dataclasses.fields(jd.efc)},
+            "qacc": jd.qacc, "qfrc": jd.qfrc_constraint, "pallas.x": xk, "pallas.f": fk}
+
+
+@pytest.fixture(scope="module")
+def go2_rows():
+    """Go2 flat-scene constraint rows at B = 4, float64, from the JAX forward
+    (stored data)."""
+    mj = load_mj(GO2)
+    tm = put_model(mj, device="cpu", dtype=F64)
+    qpos, qvel, ctrl = _go2_states(mj)
+    ref = reference_utils.load("solver_go2_rows", qpos=qpos, qvel=qvel, ctrl=ctrl)
+    rows = reference_utils.nested(ref, "rows")
     assert rows["J"].shape == (4, 28, 18) and (rows["D"] > 0).any(), "the batch must be in contact"
-    efc = {f.name: np.asarray(getattr(jd.efc, f.name)) for f in dataclasses.fields(jd.efc)}
-    return dict(mj=mj, jm=jm, tm=tm, rows=rows, efc=efc, qacc=np.asarray(jd.qacc),
-                qfrc=np.asarray(jd.qfrc_constraint))
+    return dict(mj=mj, tm=tm, rows=rows, efc=reference_utils.nested(ref, "efc"), qacc=ref["qacc"],
+                qfrc=ref["qfrc"], pallas=(ref["pallas.x"], ref["pallas.f"]))
 
 
 def _torch_args(rows, dtype=F64):
@@ -140,14 +157,13 @@ def test_plain_solve_matches_pallas_kernel_on_go2_rows(go2_rows):
     tm = go2_rows["tm"]
     key = solver_cuda.solver_key(tm, 28)
     assert key == (18, 28, tm.opt.iterations, tm.opt.ls_iterations, float(tm.opt.tolerance), (), 1.0)
-    xk, fk = _pallas(key, go2_rows["rows"])
+    xk, fk = go2_rows["pallas"]
     x, f = solver_cuda.solve_batched_reference(tm, *_torch_args(go2_rows["rows"]))
     scale = max(1.0, float(np.abs(xk).max()))
     np.testing.assert_allclose(x.numpy() / scale, xk / scale, atol=1e-9)
     np.testing.assert_allclose(f.numpy() / scale, fk / scale, atol=1e-9)
 
 
-@pytest.mark.slow
 def test_plain_step_matches_jax_step_on_pallas_solver(monkeypatch):
     """One whole step at float32, the JAX side through vmap(forward.step) with
     the Pallas solver switched on, as tests/test_pallas.py runs it; that
@@ -172,12 +188,25 @@ def test_plain_step_matches_jax_step_on_pallas_solver(monkeypatch):
 B_SYN = 32
 
 
+def jax_synthetic_reference():
+    """The JAX side of the synthetic problem
+    (tests/reference_data/solver_synthetic.npz): vmap(_solve_arrays), the XLA
+    route, and the Pallas solver kernel on the same rows."""
+    rows = solver_cases.synthetic_problem(seed=3, batch=B_SYN)
+    jm = _jax_namespace()
+    fn = jax.jit(jax.vmap(lambda *a: jsolver._solve_arrays(jm, *a)))
+    xj, fj = fn(*[jnp.asarray(rows[k]) for k in ARGS])
+    xk, fk = _pallas(solver_cuda.solver_key(solver_cases.synthetic_model(), 12), rows)
+    return {**{"in." + k: rows[k] for k in ARGS}, "xla.x": xj, "xla.f": fj, "pallas.x": xk, "pallas.f": fk}
+
+
 @pytest.fixture(scope="module")
 def synthetic():
     rows = solver_cases.synthetic_problem(seed=3, batch=B_SYN)
     tm = solver_cases.synthetic_model()
     x, f = solver_cuda.solve_batched_reference(tm, *_torch_args(rows))
-    return dict(rows=rows, tm=tm, x=x.numpy(), f=f.numpy())
+    ref = reference_utils.load("solver_synthetic", **{k: rows[k] for k in ARGS})
+    return dict(rows=rows, tm=tm, x=x.numpy(), f=f.numpy(), ref=ref)
 
 
 def test_synthetic_problem_reaches_every_branch(synthetic):
@@ -197,9 +226,7 @@ def test_synthetic_problem_reaches_every_branch(synthetic):
 
 
 def test_synthetic_plain_solve_matches_jax_xla(synthetic):
-    jm = _jax_namespace()
-    fn = jax.jit(jax.vmap(lambda *a: jsolver._solve_arrays(jm, *a)))
-    xj, fj = fn(*[jnp.asarray(synthetic["rows"][k]) for k in ARGS])
+    xj, fj = synthetic["ref"]["xla.x"], synthetic["ref"]["xla.f"]
     np.testing.assert_allclose(synthetic["x"], np.asarray(xj), atol=1e-9, rtol=1e-9)
     np.testing.assert_allclose(synthetic["f"], np.asarray(fj), atol=1e-9, rtol=1e-9)
 
@@ -207,7 +234,7 @@ def test_synthetic_plain_solve_matches_jax_xla(synthetic):
 def test_synthetic_plain_solve_matches_pallas_kernel(synthetic):
     key = solver_cuda.solver_key(synthetic["tm"], 12)
     assert key[5] == ((2, 3), (5, 6)) and key[6] == 2.0
-    xk, fk = _pallas(key, synthetic["rows"])
+    xk, fk = synthetic["ref"]["pallas.x"], synthetic["ref"]["pallas.f"]
     np.testing.assert_allclose(synthetic["x"], xk, atol=1e-9, rtol=1e-9)
     np.testing.assert_allclose(synthetic["f"], fk, atol=1e-9, rtol=1e-9)
 
@@ -245,16 +272,8 @@ def _sphere_scene(condim, impratio):
 _SPHERE_CASES = [(0, 0.5, 3.0), (1, 0.001, 0.0), (3, 0.5, 0.0), (4, 1.0, -2.0)]
 
 
-@pytest.mark.parametrize("condim", [3, 6])
-@pytest.mark.parametrize("impratio", [1.0, 10.0])
-def test_elliptic_forward_matches_jax_and_mujoco(condim, impratio):
-    """Against the JAX forward at float64 (1e-7, rows 1e-9 / 1e-7) and against
-    CPU mj_forward with the tolerances of tests/test_physics_elliptic.py."""
-    mj = _sphere_scene(condim, impratio)
-    jm = jmodel.put_model(mj, dtype=jnp.float64)
-    tm = put_model(mj, device="cpu", dtype=F64)
-    assert constraint.elliptic_groups(tm) == ((0, condim),) and float(tm.opt.impratio) == impratio
-    jfwd = jax.jit(lambda dd: jax_forward(jm, dd))
+def _sphere_states(mj):
+    """The _SPHERE_CASES states and CPU mj_forward's qacc, qfrc_constraint."""
     qpos, qvel, qacc, qfrc = [], [], [], []
     for seed, scale, spin in _SPHERE_CASES:
         md = mujoco.MjData(mj)
@@ -263,17 +282,55 @@ def test_elliptic_forward_matches_jax_and_mujoco(condim, impratio):
         mujoco.mj_forward(mj, md)
         qpos.append(md.qpos.copy()); qvel.append(md.qvel.copy())
         qacc.append(md.qacc.copy()); qfrc.append(md.qfrc_constraint.copy())
-    t = lambda a: torch.tensor(np.stack(a))
+    return [np.stack(a) for a in (qpos, qvel, qacc, qfrc)]
+
+
+_EFC_TOL = (("J", 1e-9), ("D", 1e-7), ("aref", 1e-7), ("eta", 0.0), ("frictionloss", 0.0))
+
+
+def jax_elliptic_reference():
+    """The JAX forward at float64 on the sphere-on-plane states of each
+    (condim, impratio) (tests/reference_data/solver_elliptic.npz): rows,
+    qacc and qfrc_constraint, a jitted single-state call a state."""
+    out = {}
+    for condim, impratio in [(c, i) for c in (3, 6) for i in (1.0, 10.0)]:
+        mj = _sphere_scene(condim, impratio)
+        jm = jmodel.put_model(mj, dtype=jnp.float64)
+        jfwd = jax.jit(lambda dd: jax_forward(jm, dd))
+        qpos, qvel, _, _ = _sphere_states(mj)
+        case = f"{condim}_{impratio:g}"
+        out[f"in.qpos_{case}"], out[f"in.qvel_{case}"] = qpos, qvel
+        jds = [jfwd(jreplace(jmodel.make_data(jm, dtype=jnp.float64), qpos=jnp.asarray(q), qvel=jnp.asarray(v)))
+               for q, v in zip(qpos, qvel)]
+        for name, _ in _EFC_TOL:
+            out[f"{case}.efc.{name}"] = np.stack([np.asarray(getattr(jd.efc, name)) for jd in jds])
+        out[f"{case}.qacc"] = np.stack([np.asarray(jd.qacc) for jd in jds])
+        out[f"{case}.qfrc"] = np.stack([np.asarray(jd.qfrc_constraint) for jd in jds])
+    return out
+
+
+@pytest.mark.parametrize("condim", [3, 6])
+@pytest.mark.parametrize("impratio", [1.0, 10.0])
+def test_elliptic_forward_matches_jax_and_mujoco(condim, impratio):
+    """Against the JAX forward at float64 (1e-7, rows 1e-9 / 1e-7; stored
+    data) and against CPU mj_forward with the tolerances of
+    tests/test_physics_elliptic.py."""
+    mj = _sphere_scene(condim, impratio)
+    tm = put_model(mj, device="cpu", dtype=F64)
+    assert constraint.elliptic_groups(tm) == ((0, condim),) and float(tm.opt.impratio) == impratio
+    qpos, qvel, qacc, qfrc = _sphere_states(mj)
+    case = f"{condim}_{impratio:g}"
+    ref = reference_utils.load("solver_elliptic", **{f"qpos_{case}": qpos, f"qvel_{case}": qvel})
+    t = lambda a: torch.tensor(a)
     td = tforward(tm, make_data(tm, len(qpos)).replace(qpos=t(qpos), qvel=t(qvel)))
-    np.testing.assert_allclose(td.qacc.numpy(), np.stack(qacc), atol=5e-3)
-    np.testing.assert_allclose(td.qfrc_constraint.numpy(), np.stack(qfrc), atol=2e-3)
+    np.testing.assert_allclose(td.qacc.numpy(), qacc, atol=5e-3)
+    np.testing.assert_allclose(td.qfrc_constraint.numpy(), qfrc, atol=2e-3)
     assert (td.efc.eta[:, 1:] > 0).all() and (td.efc.eta[:, 0] == 0).all()
     for i in range(len(qpos)):
-        jd = jfwd(jreplace(jmodel.make_data(jm, dtype=jnp.float64), qpos=jnp.asarray(qpos[i]), qvel=jnp.asarray(qvel[i])))
-        for name, tol in (("J", 1e-9), ("D", 1e-7), ("aref", 1e-7), ("eta", 0.0), ("frictionloss", 0.0)):
-            np.testing.assert_allclose(getattr(td.efc, name)[i].numpy(), np.asarray(getattr(jd.efc, name)), atol=tol, rtol=1e-9, err_msg=name)
-        np.testing.assert_allclose(td.qacc[i].numpy(), np.asarray(jd.qacc), atol=1e-7, rtol=1e-7)
-        np.testing.assert_allclose(td.qfrc_constraint[i].numpy(), np.asarray(jd.qfrc_constraint), atol=1e-7, rtol=1e-7)
+        for name, tol in _EFC_TOL:
+            np.testing.assert_allclose(getattr(td.efc, name)[i].numpy(), ref[f"{case}.efc.{name}"][i], atol=tol, rtol=1e-9, err_msg=name)
+        np.testing.assert_allclose(td.qacc[i].numpy(), ref[f"{case}.qacc"][i], atol=1e-7, rtol=1e-7)
+        np.testing.assert_allclose(td.qfrc_constraint[i].numpy(), ref[f"{case}.qfrc"][i], atol=1e-7, rtol=1e-7)
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +508,10 @@ int main(int argc, char** argv) {
 """
 KERNEL_ARGS = ("J", "M", "D", "aref", "fl", "eta", "qs")  # the kernel's order
 SHARED_FILLS = (0x00, 0xFF)  # zeros, and NaN in either type
+# the host builds run a team's lanes as threads that meet at a barrier every
+# phase: on a loaded CPU a run takes many times its usual seconds (10 s to
+# 360 s seen), so these tests get more than the default limit
+HOST_RUN_LIMIT = pytest.mark.timeout(600)
 
 
 def _write_host_sources(key, d):
@@ -533,6 +594,7 @@ def _assert_host_matches_plain(host_cases, case, x, f, dtype):
     np.testing.assert_allclose(f / scale, f_ref / scale, atol=tol)
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("case", ["go2", "synthetic"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_solver_source_on_host_matches_plain_version(host_cases, host_solvers, case, dtype):
@@ -541,6 +603,7 @@ def test_solver_source_on_host_matches_plain_version(host_cases, host_solvers, c
     _assert_host_matches_plain(host_cases, case, x, f, dtype)
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("lanes", [16, 8])
 @pytest.mark.parametrize("case", ["go2", "synthetic"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -563,6 +626,7 @@ def host_solvers_prefilled(host_cases, tmp_path_factory):
     }
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("case", ["go2", "synthetic"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_solver_source_reads_no_uninitialised_value(host_cases, host_solvers, host_solvers_prefilled, case, dtype):
@@ -576,6 +640,7 @@ def test_solver_source_reads_no_uninitialised_value(host_cases, host_solvers, ho
                 np.testing.assert_array_equal(a, b)
 
 
+@HOST_RUN_LIMIT
 @pytest.mark.parametrize("case,lanes", [("go2", 32), ("synthetic", 32), ("synthetic", 8)])
 def test_solver_source_has_no_data_race(host_cases, host_solvers, tmp_path, case, lanes):
     """ThreadSanitizer over the lane-emulating host build, three samples in
@@ -596,7 +661,7 @@ def test_solver_source_has_no_data_race(host_cases, host_solvers, tmp_path, case
     np.concatenate([np.ascontiguousarray(few[k], np.float64).ravel() for k in KERNEL_ARGS]).tofile(tmp_path / "in.bin")
     run = subprocess.run(
         [str(tmp_path / "tsan"), str(tmp_path / "in.bin"), str(nb), str(tmp_path / "out.bin")],
-        capture_output=True, text=True, timeout=600,
+        capture_output=True, text=True, timeout=300,
         env={**os.environ, "TSAN_OPTIONS": "halt_on_error=1 exitcode=66"},
     )
     if "unexpected memory mapping" in run.stderr:
