@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--steps N] [--unfused-steps N] [--jump-steps N]
         [--jog-steps N] [--loco-steps N] [--crate-steps N] [--push-steps N]
-        [--allegro-steps N] [--compare-only]
+        [--allegro-steps N] [--compare-only] [--parent DIR]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. environment (torch, CUDA, nvcc, card name and power limit);
@@ -11,7 +11,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
      runs started together: the step kernel and the solver kernel for each
      scene of the tasks (Go2 flat, H1 walk, H1 loco, Go2 crate, H1 push
      crate, Allegro), and the solver kernel for a synthetic key with elliptic
-     groups;
+     groups; with --parent DIR (another checkout of the repo, such as the
+     parent commit's) also kernel E of every scene and kernel S of the Go2
+     flat scene against that checkout's, on the same states, in turns
+     (theirs, this, this, theirs: tools/time_step_kernel.py and
+     tools/time_solver_kernel.py in processes of their own): the outputs
+     must be the same bits; each run's times at B = 2049 and B = 1, shared
+     memory a team, teams an SM, waves and ptxas numbers are printed;
   3. each kernel against its plain PyTorch version on the card, for each
      scene on a contact-rich batch (on the crate scenes posed against the
      crate, and the states with a box contact counted; on the Allegro scene
@@ -23,8 +29,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
        gate; path_batches), n_steps = 4
        against four sequential launches, and two launches on the same inputs
        (bit for bit); the states at a joint limit counted; its occupancy
-       (samples a block, teams per SM), shared memory and ptxas numbers by
-       type, and its time beside its bound;
+       (samples a block, teams per SM, and the waves of teams of a launch at
+       B = 2049, step_core.waves), shared memory and ptxas numbers by type,
+       and its time beside its bound;
      - the solver kernel: the constraint rows of the same batch (at-limit
        states included and counted), B = 2049 and B = 1, float64 and float32;
        on the Go2 flat scene also the synthetic problem of
@@ -377,6 +384,7 @@ def phase_compare(name, mj, path_b=()):
         engine_cuda.step_core(m32, q32, v32, c32, 1)
     torch.cuda.synchronize()
     wrapper_ms = cuda_ms(lambda: engine_cuda.step_core(m32, q32, v32, c32, 1), 100)
+    waves = engine_cuda.step_core.waves  # of a launch at B = 2049 in float32
     lib = engine_cuda.load_library(m32)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -409,7 +417,7 @@ def phase_compare(name, mj, path_b=()):
     timing = dict(
         max_abs_err=errs["f32_B2049"], wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, b1_ms=b1_ms, wrapper64_ms=wrapper64_ms, bytes=nbytes, flops=flops,
-        kernel_b1_ms=kernel_b1_ms, kernel64_ms=kernel64_ms, lanes=lib.lanes,
+        kernel_b1_ms=kernel_b1_ms, kernel64_ms=kernel64_ms, lanes=lib.lanes, waves=waves,
         teams_per_sm={"float32": lib.teams_per_sm(torch.float32), "float64": lib.teams_per_sm(torch.float64)},
         samples_per_block={"float32": lib.launch_shape(torch.float32)[0],
                            "float64": lib.launch_shape(torch.float64)[0]},
@@ -1257,6 +1265,46 @@ def build_all(models):
     )
 
 
+def phase_parent_bits(parent):
+    """Phase 2, with --parent: kernel E of every scene and kernel S of the Go2
+    flat scene, this checkout's against another's, on the same states; the
+    timing tools in processes of their own, in turns parent, this, this,
+    parent. Every run must print the same output hashes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    tools = os.path.join(here, "dial_mpc_tpu_torch", "tools")
+    inputs = tempfile.mkdtemp(prefix="parent_bits_")
+    runs = []
+    t0 = time.time()
+    for label, tree in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        env = {**os.environ, "PYTHONPATH": tree}
+        lines = {}
+        for tool, more in (("time_step_kernel.py", ["--scene", "all", "--inputs", inputs]),
+                           ("time_solver_kernel.py", [])):
+            r = subprocess.run([sys.executable, os.path.join(tools, tool), "--label", label, *more],
+                               env=env, cwd=tree, capture_output=True, text=True)
+            require(r.returncode == 0, f"{tool} on {tree} failed:\n{r.stderr[-3000:]}")
+            for line in r.stdout.splitlines():
+                if line.startswith("{"):
+                    rec = json.loads(line)
+                    lines[rec.get("scene", "solver_go2")] = rec
+        runs.append((label, lines))
+    hashes = ("float32_output_sha256", "float64_output_sha256")
+    per_key = {}
+    for key in runs[0][1]:
+        seen = {(label, h, lines[key][h]) for label, lines in runs for h in hashes}
+        require(len({(h, v) for _, h, v in seen}) == 2,
+                f"{key}: kernel outputs differ between the checkouts or runs: {sorted(seen)}")
+        per_key[key] = {
+            label: {k: v for k, v in lines[key].items() if k not in ("label", "card")}
+            for label, lines in runs[:2]
+        }
+        for name in ("float32_kernel_ms", "float32_B1_kernel_ms", "float64_kernel_ms", "float64_B1_kernel_ms"):
+            per_key[key][name + "_in_turns"] = [lines[key].get(name) for _, lines in runs]
+    emit("parent_bits", ok=True, parent=parent, seconds=time.time() - t0, order=[label for label, _ in runs],
+         identical_outputs=True, per_key=per_key)
+
+
 def key_record(t, scene_model):
     """What the kernels line keeps of one key's timing."""
     return dict(
@@ -1265,7 +1313,7 @@ def key_record(t, scene_model):
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], kernel_b1_ms=t["kernel_b1_ms"],
         f64_kernel_ms=t["kernel64_ms"], max_abs_err=max(t["max_abs_err"].values()),
         teams_per_sm=t["teams_per_sm"], team_shared_bytes=t["team_shared_bytes"],
-        samples_per_block=t["samples_per_block"], ptxas=t["ptxas"],
+        samples_per_block=t["samples_per_block"], ptxas=t["ptxas"], waves=t.get("waves"),
     )
 
 
@@ -1282,6 +1330,8 @@ def main():
                     help="control steps of Allegro in-hand reorientation, fused route")
     ap.add_argument("--compare-only", action="store_true",
                     help="build and compare the kernels, then stop (a short run after a kernel edit)")
+    ap.add_argument("--parent", type=str, default=None,
+                    help="another checkout whose kernels E and S must give the same bits (phase 2)")
     # one rank of phase 6 (b); the script starts these itself
     ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-store", type=str, default=None, help=argparse.SUPPRESS)
@@ -1305,6 +1355,8 @@ def main():
         mjs[name] = load_scene(robot, xml)
         mjs[name].opt.timestep = TIMESTEP.get(name, 0.02)
     build_all({name: put_model(mj, device=DEVICE, dtype=torch.float32) for name, mj in mjs.items()})
+    if args.parent:
+        phase_parent_bits(args.parent)
 
     keys_e, keys_s = {}, {}
     batches = path_batches()

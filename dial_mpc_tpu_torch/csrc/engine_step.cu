@@ -33,7 +33,10 @@
 //   order, so the results do not depend on timing;
 // - the sample's working set (M, H, L, J, the inertias, the frames, the solve's
 //   vectors) lives in dynamic shared memory, StepShared<T>, with what dies
-//   early aliased by what comes later;
+//   early aliased by what comes later; each matrix is stored on its static
+//   pattern alone (model_consts.cuh), and the lists that name its entries
+//   carry their positions, so that the working set, and with it the teams an
+//   SM holds, follows the model's sparsity and no phase gains a load;
 // - the model's tables are read from global memory (model_consts.cuh).
 // The boundary is sample-major: a sample's inputs and outputs are one
 // contiguous row, which its team reads and writes together.
@@ -384,19 +387,20 @@ struct EnginePolicy {
   static __device__ __forceinline__ T impratio() { return model_scalars<T>().impratio; }
   static __device__ __forceinline__ const short* jrow_adr() { return g_lists.jrow_adr; }
   static __device__ __forceinline__ const short* jrow_col() { return g_lists.jrow_col; }
-  static __device__ __forceinline__ const short* jcol_adr() { return g_lists.jcol_adr; }
-  static __device__ __forceinline__ const short* jcol_row() { return g_lists.jcol_row; }
-  static __device__ __forceinline__ const short* mrow_adr() { return g_lists.mrow_adr; }
-  static __device__ __forceinline__ const short* mrow_col() { return g_lists.mrow_col; }
-  static __device__ __forceinline__ const short* hrow_adr() { return g_lists.hrow_adr; }
-  static __device__ __forceinline__ const short* hrow() { return g_lists.hrow; }
+  static __device__ __forceinline__ const int* jcol_at() { return g_lists.jcol_at; }
+  static __device__ __forceinline__ const int* jcol_row() { return g_lists.jcol_row; }
+  static __device__ __forceinline__ const int* mrow_at() { return g_lists.mrow_at; }
+  static __device__ __forceinline__ const int* mrow_col() { return g_lists.mrow_col; }
+  static __device__ __forceinline__ const int* hrow_at() { return g_lists.hrow_at; }
+  static __device__ __forceinline__ const unsigned* hrow() { return g_lists.hrow; }
   static __device__ __forceinline__ const short* hgrp_adr() { return g_lists.hgrp_adr; }
   static __device__ __forceinline__ const short* hgrp() { return g_lists.hgrp; }
   static __device__ __forceinline__ const auto& hfac() { return g_hfac; }
 };
 
 // ---------------------------------------------------------------------------
-// The working set of one sample, in shared memory
+// The working set of one sample, in shared memory; the matrices on their
+// static patterns (model_consts.cuh)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -406,10 +410,10 @@ struct StepShared {
   // kept until the outputs or the solve
   T xpos[NBODY][3], xquat[NBODY][4], subtree_com[NBODY][3], cvel[NBODY][6];
   T cdof[NV][6];
-  T M[NV][NV];  // entries outside the mass matrix's mask are never written or read
+  T M[NMENT];  // the masked lower entries, in ment's order
   T qfrc[NV], qacc[NV];
   T con_dist[NCON1], con_pos[NCON1][3];
-  T J[NEFC1][NV], D[NEFC1], aref[NEFC1];  // J only on each row's support
+  T J[NJ1], D[NEFC1], aref[NEFC1];  // J on its rows' supports, in row order
   union {
     struct {  // the smooth dynamics: dead once M and qfrc are built
       T xanchor[NJNT][3], xaxis[NJNT][3], xipos[NBODY][3];
@@ -418,16 +422,17 @@ struct StepShared {
       T F[NV][6];  // composite inertia times cdof
     } s;
     struct {  // the solves, and the contact frames before the Newton solve
-      T A[NV][NV], L[NV][NV], b[NV], w[NV], y[NV];
+      // a factor schedule's matrix and factor (M's, then the Hessian's)
+      T A[NFAC], L[NFAC], b[NV], w[NV], y[NV];
       T force[NEFC1], quad_w[NEFC1];
-      // Jn, Jt1, Jt2 of each slot on its support, then the rotational
-      // Jacobians along the frame of each condim-6 slot (block NCON +
-      // con_rot[slot]); once the rows are built, the elliptic groups' scratch
-      T con_frame[NCON1][9], con_jac[NCON1 + NCON6][3][NV];
+      // Jn, Jt1, Jt2 along the frame of each contact-dof pair, then the
+      // rotational Jacobians of the condim-6 slots' pairs (row q +
+      // con_jrot[slot]); once the rows are built, the elliptic groups' scratch
+      T con_frame[NCON1][9], con_jac[NCJAC1][3];
     } c;
   };
 };
-static_assert(list_scratch_size<EnginePolicy>() <= (NCON1 + NCON6) * 3 * NV,
+static_assert(list_scratch_size<EnginePolicy>() <= NCJAC1 * 3,
               "the groups' scratch must fit in the contact Jacobians it aliases");
 
 // ---------------------------------------------------------------------------
@@ -665,15 +670,14 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
     const int ij = ro(tl.ment[e]), i = ij >> 8, j = ij & 255;
     T val = v6_dot(s.F[i], S.cdof[j]);
     if (i == j) val = val + R.dof_armature[i];
-    S.M[i][j] = val;
-    S.M[j][i] = val;
+    S.M[e] = val;
   }
   tm.sync();
 
   // ---- qacc_smooth = M^-1 qfrc ----
   for (int e = lane; e < MC_N_mf_ent; e += LANES) {
-    const int rc = ro(g_mfac.ent[e]), r = rc >> 8, cl = rc & 255;
-    c.A[r][cl] = ro(g_mfac.ent_inm[e]) ? S.M[NV - 1 - cl][NV - 1 - r] : T(0);
+    const int m_at = ro(g_mfac.ent_inm[e]);
+    c.A[ro(g_mfac.ent[e]) >> 16] = m_at >= 0 ? S.M[m_at] : T(0);
   }
   for (int i = lane; i < NV; i += LANES) c.b[NV - 1 - i] = S.qfrc[i];
   tm.sync();
@@ -705,13 +709,13 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       if (in2) { v3_sub(dj, dj, jp); } else { v3_set(dj, -jp[0], -jp[1], -jp[2]); }
     }
     const T* frame = c.con_frame[slot];
-    for (int a = 0; a < 3; ++a) c.con_jac[slot][a][i] = v3_dot(dj, frame + 3 * a);
+    for (int a = 0; a < 3; ++a) c.con_jac[e][a] = v3_dot(dj, frame + 3 * a);
     if constexpr (NCON6 > 0) {
-      const int k6 = tp.con_rot[slot];
-      if (k6 >= 0) {  // rotational: body 2's minus body 1's angular part
+      const int jrot = ro(tl.con_jrot[slot]);
+      if (jrot >= 0) {  // rotational: body 2's minus body 1's angular part
         T dr[3];
         for (int x = 0; x < 3; ++x) dr[x] = (in2 ? cd[x] : T(0)) - (in1 ? cd[x] : T(0));
-        for (int a = 0; a < 3; ++a) c.con_jac[NCON + k6][a][i] = v3_dot(dr, frame + 3 * a);
+        for (int a = 0; a < 3; ++a) c.con_jac[e + jrot][a] = v3_dot(dr, frame + 3 * a);
       }
     }
   }
@@ -726,7 +730,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       T imp = impedance(R.dof_solimp[i], T(0));
       T ar = ref_acc(R.dof_solref[i], R.dof_solimp[i], timestep, imp, T(0), S.qv[i]);
       T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[i], T(MJ_MINVAL));
-      S.J[r][i] = T(1);
+      S.J[r] = T(1);  // a row of one entry, at position r
       S.D[r] = T(1) / Rr;
       S.aref[r] = ar;
     } else if (r < NFRIC + NLIMIT) {
@@ -742,7 +746,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       T imp = impedance(R.jnt_solimp[j], pos);
       T ar = ref_acc(R.jnt_solref[j], R.jnt_solimp[j], timestep, imp, pos, sign * S.qv[dadr]);
       T Rr = tmax((T(1) - imp) / imp * R.dof_invweight0[dadr], T(MJ_MINVAL));
-      S.J[r][dadr] = sign * active;
+      S.J[r] = sign * active;  // a row of one entry, at position r
       S.D[r] = active / Rr;
       S.aref[r] = ar * active;
     } else if constexpr (CON_TABLE) {
@@ -751,13 +755,15 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       // facet n +/- mu_k d_k, d_k a tangent or (condim 6) a rotation
       const int v = tp.crow[r - NFRIC - NLIMIT];
       const int slot = v >> 4, dir = (v >> 1) & 7;
-      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
+      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot], q0 = ro(tl.con_cadr[slot]);
       const T pos = S.con_dist[slot] - R.con_includemargin[slot];
       const T active = S.con_dist[slot] < R.con_includemargin[slot] ? T(1) : T(0);
       const T imp = impedance(R.con_solimp[slot], pos);
       const T invw_t = R.body_invweight0[b1][0] + R.body_invweight0[b2][0];
-      const T* Jn = c.con_jac[slot][0];
-      const T* Jd = dir < 3 ? c.con_jac[slot][dir] : c.con_jac[NCON + tp.con_rot[slot]][dir - 3];
+      // the row's k-th entry is its slot's k-th contact-dof pair: Jn and Jd
+      // at stride 3 from its first
+      const T* Jn = &c.con_jac[q0][0];
+      const T* Jd = dir < 3 ? &c.con_jac[q0][dir] : &c.con_jac[q0 + ro(tl.con_jrot[slot])][dir - 3];
       T Rr, cd = T(1), posr = pos;  // the row is Jd (elliptic) or Jn + cd Jd
       if constexpr (ELLIPTIC) {
         const T Rn = tmax((T(1) - imp) / imp * invw_t, T(MJ_MINVAL));
@@ -775,11 +781,11 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
         cd = (v & 1) ? -mu : mu;
       }
       T vel = T(0);
-      const int e1 = ro(tl.jrow_adr[r + 1]);
-      for (int e = ro(tl.jrow_adr[r]); e < e1; ++e) {
+      const int e0 = ro(tl.jrow_adr[r]), e1 = ro(tl.jrow_adr[r + 1]);
+      for (int e = e0; e < e1; ++e) {
         const int i = ro(tl.jrow_col[e]);
-        const T ej = ELLIPTIC ? Jd[i] : Jn[i] + cd * Jd[i];
-        S.J[r][i] = ej * active;
+        const T ej = ELLIPTIC ? Jd[3 * (e - e0)] : Jn[3 * (e - e0)] + cd * Jd[3 * (e - e0)];
+        S.J[e] = ej * active;
         vel = vel + ej * S.qv[i];
       }
       T ar = ref_acc(R.con_solref[slot], R.con_solimp[slot], timestep, imp, posr, vel);
@@ -788,7 +794,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
     } else {
       const int slot = (r - NFRIC - NLIMIT) >> 2, facet = (r - NFRIC - NLIMIT) & 3;
       const int kdir = facet >> 1;
-      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot];
+      const int b1 = tp.con_body1[slot], b2 = tp.con_body2[slot], q0 = ro(tl.con_cadr[slot]);
       T pos = S.con_dist[slot] - R.con_includemargin[slot];
       T active = S.con_dist[slot] < R.con_includemargin[slot] ? T(1) : T(0);
       T imp = impedance(R.con_solimp[slot], pos);
@@ -797,14 +803,14 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
       const T invw_fac = invw_t + mu * mu * invw_t;
       T Rr = tmax((T(1) - imp) / imp * invw_fac * T(2) * mu * mu, T(MJ_MINVAL));
       const T smu = (facet & 1) == 0 ? mu : -mu;
-      const T* Jn = c.con_jac[slot][0];
-      const T* Jt = c.con_jac[slot][1 + kdir];
+      const T* Jn = &c.con_jac[q0][0];
+      const T* Jt = &c.con_jac[q0][1 + kdir];
       T vel = T(0);
-      const int e1 = ro(tl.jrow_adr[r + 1]);
-      for (int e = ro(tl.jrow_adr[r]); e < e1; ++e) {
+      const int e0 = ro(tl.jrow_adr[r]), e1 = ro(tl.jrow_adr[r + 1]);
+      for (int e = e0; e < e1; ++e) {
         const int i = ro(tl.jrow_col[e]);
-        T ej = Jn[i] + smu * Jt[i];
-        S.J[r][i] = ej * active;
+        T ej = Jn[3 * (e - e0)] + smu * Jt[3 * (e - e0)];
+        S.J[e] = ej * active;
         vel = vel + ej * S.qv[i];
       }
       T ar = ref_acc(R.con_solref[slot], R.con_solimp[slot], timestep, imp, pos, vel);
@@ -818,7 +824,7 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
   if constexpr (NEFC > 0)
     newton_solve_team<EnginePolicy, T>(tm, S.J, S.D, S.aref, S.M, S.qacc, c.A, c.L, c.b, c.w,
                                        c.y, c.force, c.quad_w, C.tolerance, R.efc_frictionloss,
-                                       R.efc_eta, &c.con_jac[0][0][0], c.y);
+                                       R.efc_eta, &c.con_jac[0][0], c.y);
 
   // ---- outputs that belong to the pre-step state ----
   if (out != nullptr) {
@@ -863,10 +869,10 @@ __device__ __forceinline__ void step_once(const Team tm, StepShared<T>& S, T* ou
     // from the solve), factored on M's schedule; M's own factor is not reused,
     // its diagonal differs
     for (int e = lane; e < MC_N_mf_ent; e += LANES) {
-      const int rc = ro(g_mfac.ent[e]), rr = rc >> 8, cl = rc & 255;
-      T a = ro(g_mfac.ent_inm[e]) ? S.M[NV - 1 - cl][NV - 1 - rr] : T(0);
+      const int v = ro(g_mfac.ent[e]), rr = (v >> 8) & 255, cl = v & 255, m_at = ro(g_mfac.ent_inm[e]);
+      T a = m_at >= 0 ? S.M[m_at] : T(0);
       if (rr == cl) a = a + h * R.dof_damping[NV - 1 - rr];
-      c.A[rr][cl] = a;
+      c.A[v >> 16] = a;
     }
     for (int i = lane; i < NV; i += LANES)
       c.b[NV - 1 - i] = NEFC > 0 ? S.qfrc[i] + c.y[i] : S.qfrc[i];

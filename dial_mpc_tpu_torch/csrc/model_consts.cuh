@@ -38,6 +38,12 @@ constexpr int NPAIR1 = at_least_1(NPAIR), NCGEOM1 = at_least_1(NCGEOM);
 constexpr int NLIMIT1 = at_least_1(NLIMIT), NEFC1 = at_least_1(NEFC), NU1 = at_least_1(NU);
 constexpr int NFRIC1 = at_least_1(NFRIC), NCROW1 = at_least_1(NEFC - NFRIC - NLIMIT);
 constexpr int NGROUPS1 = at_least_1(NGROUPS);
+// the working set's matrices on their static patterns (TeamTables below): M's
+// masked lower entries, J's entries on its rows' supports, a factor's entries
+// (the Hessian's pattern holds M's), the contact Jacobians' rows of three
+constexpr int NMENT = MC_N_ment, NJ1 = at_least_1(MC_N_jrow_col);
+constexpr int NFAC = MC_N_hf_ent > MC_N_mf_ent ? MC_N_hf_ent : MC_N_mf_ent;
+constexpr int NCJAC1 = at_least_1(MC_NCJAC);
 
 // output rows, in the order the wrapper splits them
 constexpr int O_QPOS = 0;
@@ -76,30 +82,51 @@ struct ModelTopo {
   // contact rows (with CON_TABLE): slot << 4 | direction << 1 | reversed;
   // directions 0 normal, 1-2 tangents, 3-5 rotations (engine_cuda.contact_rows)
   int crow[mc::NCROW1];
-  int con_rot[mc::NCON1];  // a condim-6 slot's rotational Jacobian block, else -1
 };
 
 // The lists a team's lanes walk (engine_cuda.team_tables). A list xs with
 // offsets xs_adr holds the entries of item k at xs[xs_adr[k] .. xs_adr[k+1]).
-// Matrix entries are packed row << 8 | column; the factor schedules are in
-// elimination order (dof nv-1-e is eliminated e-th, children first).
+// Lists that one lane walks alone, item after item, are interleaved instead
+// (xs with xs_at), so that at each step the lanes of a warp read adjacent
+// words of one line: item k's n entries lie at s, s + LIST_STRIDE, ...,
+// where xs_at[k] = s | n << 16 (newton_solve_team.cuh).
+// The working set's matrices are stored on their static patterns alone, and
+// an item that names an entry carries its position there, so that a lane finds
+// both from one load:
+// - M on its masked lower entries, in ment's order (M[i][j] and M[j][i] are
+//   one value);
+// - J on its rows' supports in row order: entry (r, i) at its place in
+//   jrow_col (the rows of friction loss and of limits, one entry each and
+//   first, at position r);
+// - a factor schedule's matrix and factor (FactorSchedule) at pos: the
+//   diagonal entry of row k at k, then row k's entries left of the diagonal
+//   at NV + their place in back (rows, so that the backward sweep's phase
+//   reads adjacent words).
+// The factor schedules are in elimination order (dof nv-1-e is eliminated
+// e-th, children first).
 template <int NENT, int NCOL, int NUPD, int NBACK, int MAXCOL_, int MAXUPD_, int MAXBACK_>
 struct FactorSchedule {
   // list lengths, and the longest column, update list and row
-  static constexpr int NCOL_ALL = NCOL, NUPD_ALL = NUPD, NBACK_ALL = NBACK;
+  static constexpr int NENT_ALL = NENT, NCOL_ALL = NCOL, NUPD_ALL = NUPD, NBACK_ALL = NBACK;
   static constexpr int MAXCOL = MAXCOL_, MAXUPD = MAXUPD_, MAXBACK = MAXBACK_;
-  short ent[NENT];      // the pattern's lower entries (fill included)
-  short ent_inm[NENT];  // 1 where the entry lies in the factored matrix's mask
-  short col_adr[mc::NV + 1], col[NCOL];  // column c: rows below the diagonal
-  // column c: trailing updates A[r][k] -= L[r][c] L[k][c]
-  short upd_adr[mc::NV + 1], upd[NUPD];
-  short back_adr[mc::NV + 1], back[NBACK];  // row k: columns left of the diagonal
+  int ent[NENT];        // the pattern's lower entries (fill included): pos << 16 | r << 8 | c
+  short ent_inm[NENT];  // each entry's position in M, or -1 outside M's mask
+  short col_adr[mc::NV + 1];
+  int col[NCOL];  // column c: rows r below the diagonal, packed r | pos(r, c) << 8
+  // column c: trailing updates A[r][k] -= L[r][c] L[k][c], packed
+  // pos(r, c) | pos(k, c) << 10 | pos(r, k) << 20
+  short upd_adr[mc::NV + 1];
+  int upd[NUPD];
+  // row k: columns left of the diagonal (the e-th at NV + e)
+  short back_adr[mc::NV + 1], back[NBACK];
 };
 #define MC_FACTOR(p)                                                                  \
   FactorSchedule<mc::at_least_1(MC_N_##p##_ent), mc::at_least_1(MC_N_##p##_col),      \
                  mc::at_least_1(MC_N_##p##_upd), mc::at_least_1(MC_N_##p##_back),     \
                  MC_##p##_MAXCOL, MC_##p##_MAXUPD, MC_##p##_MAXBACK>
-#define MC_LIST(name) short name[mc::at_least_1(MC_N_##name)]
+#define MC_LIST_OF(type, name) type name[mc::at_least_1(MC_N_##name)]
+#define MC_LIST(name) MC_LIST_OF(short, name)
+#define MC_WALK(type, name) alignas(128) MC_LIST_OF(type, name)
 struct TeamTables {
   MC_LIST(level_adr);  // bodies of depth d + 1 (the world has depth 0)
   MC_LIST(level_body);
@@ -109,21 +136,31 @@ struct TeamTables {
   MC_LIST(dact_adr);  // actuators of each dof
   MC_LIST(dact);
   MC_LIST(ment);      // masked lower entries (i, j <= i) of M, dof order
-  MC_LIST(mrow_adr);  // M's symmetric rows
-  MC_LIST(mrow_col);
-  MC_LIST(jrow_adr);  // the dofs each constraint row can reach
+  MC_LIST_OF(int, mrow_at);  // M's symmetric rows: column j | position in M << 8
+  MC_WALK(int, mrow_col);
+  MC_LIST(jrow_adr);  // the dofs each constraint row can reach (entry e at J[e])
   MC_LIST(jrow_col);
-  MC_LIST(jcol_adr);  // the rows that can reach each dof
-  MC_LIST(jcol_row);
+  MC_LIST_OF(int, jcol_at);  // the rows that can reach each dof: row | position in J << 8
+  MC_WALK(int, jcol_row);
   // contact-dof pairs: slot << 10 | side << 8 | dof, side bit 0 for body 1's
   // chain, bit 1 for body 2's (16 bits: unsigned)
-  unsigned short cpair[mc::at_least_1(MC_N_cpair)];
-  MC_LIST(hrow_adr);  // rows that reach both dofs of each Hessian factor entry
-  MC_LIST(hrow);
+  MC_LIST_OF(unsigned short, cpair);
+  // per contact slot: its first contact-dof pair, and where its rotational
+  // Jacobians lie (condim 6; -1 elsewhere). The contact Jacobians are rows of
+  // three values (Jn, Jt1, Jt2, or the three rotations): pair q's at row q,
+  // its rotational ones at row q + con_jrot[slot].
+  MC_LIST_OF(int, con_cadr);
+  MC_LIST_OF(int, con_jrot);
+  // rows that reach both dofs (i, j) of each Hessian factor entry, packed
+  // row | position of J[row][i] << 8 | position of J[row][j] << 20
+  MC_LIST_OF(int, hrow_at);
+  MC_WALK(unsigned, hrow);
   MC_LIST(hgrp_adr);  // elliptic groups whose rank-1 term reaches each entry
   MC_LIST(hgrp);
 };
 #undef MC_LIST
+#undef MC_WALK
+#undef MC_LIST_OF
 
 // Real-valued constants, stored once for each compute type.
 template <typename T>
@@ -163,13 +200,13 @@ __device__ const ModelTopo g_topo = {
     MCI_pair_g1, MCI_pair_g2, MCI_pair_conadr, MCI_pair_kind, MCI_con_body1, MCI_con_body2,
     MCI_fric_dof, MCI_limit_jnt,
     MCI_act_qposadr, MCI_act_affine,
-    MCI_act_ctrllimited, MCI_act_forcelimited, MCI_crow, MCI_con_rot};
+    MCI_act_ctrllimited, MCI_act_forcelimited, MCI_crow};
 
 __device__ const TeamTables g_lists = {
     MCI_level_adr, MCI_level_body, MCI_child_adr, MCI_child_body, MCI_dof_jnt,
-    MCI_dact_adr, MCI_dact, MCI_ment, MCI_mrow_adr, MCI_mrow_col,
-    MCI_jrow_adr, MCI_jrow_col, MCI_jcol_adr, MCI_jcol_row, MCI_cpair,
-    MCI_hrow_adr, MCI_hrow, MCI_hgrp_adr, MCI_hgrp};
+    MCI_dact_adr, MCI_dact, MCI_ment, MCI_mrow_at, MCI_mrow_col,
+    MCI_jrow_adr, MCI_jrow_col, MCI_jcol_at, MCI_jcol_row, MCI_cpair,
+    MCI_con_cadr, MCI_con_jrot, MCI_hrow_at, MCI_hrow, MCI_hgrp_adr, MCI_hgrp};
 
 __device__ const MC_FACTOR(mf) g_mfac = {
     MCI_mf_ent, MCI_mf_ent_inm, MCI_mf_col_adr, MCI_mf_col,

@@ -33,17 +33,26 @@
 //   P::CONSTRAINT_FORCE            also return qfrc = J' force at the result
 //     (qfrc in dof order, summed over the rows in order)
 //   P::DENSE   every row reaches every dof, M and the Hessian are full: rows,
-//     dofs and lower entries are compile-time ranges, the Hessian lives in
-//     the lanes' registers and its factor is dense (dense_chol_solve_team);
-//     no index list is read. Otherwise the sparsity comes as lists:
-//   P::jrow_adr(), P::jrow_col()   the dofs each row of J can reach
-//   P::jcol_adr(), P::jcol_row()   the rows that can reach each dof
-//   P::mrow_adr(), P::mrow_col()   M's symmetric rows
+//     dofs and lower entries are compile-time ranges, J, M and L are 2-D
+//     arrays, the Hessian lives in the lanes' registers and its factor is
+//     dense (dense_chol_solve_team); no index list is read. Otherwise the
+//     sparsity comes as lists, and J, M, the Hessian A and its factor L are
+//     stored on their patterns alone (model_consts.cuh says where each entry
+//     lies); an item that names an entry carries its position:
+//   P::jrow_adr(), P::jrow_col()   the dofs each row of J can reach (entry e at J[e])
+//   P::jcol_at(), P::jcol_row()    the rows that can reach each dof (row | J position << 8)
+//   P::mrow_at(), P::mrow_col()    M's symmetric rows (column | M position << 8)
 //   P::hfac()                      the Hessian's factor schedule (FactorSchedule)
-//   P::hrow_adr(), P::hrow()       rows reaching both dofs of each factor entry
+//   P::hrow_at(), P::hrow()        rows reaching both dofs of each factor entry
+//                                  (row | J positions of both dofs << 8, << 20)
 // Lists are index arrays in global memory, read through the read-only path; a
 // list xs with offsets xs_adr holds item k at xs[xs_adr[k] .. xs_adr[k+1]).
+// The lists a lane walks alone (xs with xs_at) are interleaved, so that the
+// lanes of a warp read one line at each step: item k's n entries lie at s,
+// s + LIST_STRIDE, ..., where xs_at[k] = s | n << 16.
 #pragma once
+
+#include <type_traits>
 
 #include "lane_math.cuh"
 
@@ -52,6 +61,8 @@
 #define LANES 32
 #endif
 static_assert(LANES == 32 || LANES == 16 || LANES == 8, "LANES must be 8, 16 or 32");
+// the interleaving of the lists a lane walks alone (engine_cuda.LIST_STRIDE)
+constexpr int LIST_STRIDE = 32;
 
 struct Team {
   int lane;       // 0 .. LANES - 1
@@ -76,9 +87,11 @@ __device__ __forceinline__ V ro(const V& v) { return __ldg(&v); }
 // Masked Cholesky solve, one column at a time.
 //
 // On entry A holds the lower entries of the pattern of the matrix in
-// elimination order (fill entries zero) and b the right-hand side in that
-// order; on exit y holds the solution in that order. A and b are destroyed;
-// L receives the factor; w is scratch. Column c is one phase: every lane
+// elimination order (fill entries zero), stored where the schedule s puts
+// them (the diagonal of row k at k, the row's entries left of it at N + their
+// place in s.back), and b the right-hand side in that order; on exit y
+// holds the solution in that order. A and b are destroyed; L receives the
+// factor, stored as A; w is scratch. Column c is one phase: every lane
 // reads the pivot, the lanes share the entries below it (scaled into L, and
 // the forward sweep's update of b) and the trailing updates of the columns
 // right of it, each of which reads column c of A and scales it itself. The
@@ -86,47 +99,50 @@ __device__ __forceinline__ V ro(const V& v) { return __ldg(&v); }
 // clamped at 1e-12. The caller syncs between filling A, b and this call.
 //
 // A phase's time is its chain of dependent loads, so a lane first loads the
-// indices of all its items (S::MAXCOL, S::MAXUPD, S::MAXBACK bound how many),
-// then all their operands, while the pivot's square root and divisions run
-// beside; only then does it compute and store. A lane without an item of its
-// own points at the pivot, which no lane writes in the phase.
+// items of all its entries (S::MAXCOL, S::MAXUPD, S::MAXBACK bound how many),
+// each of which names the rows and the storage positions it touches, then all
+// their operands, while the pivot's square root and divisions run beside;
+// only then does it compute and store. A lane without an item of its own
+// points at the pivot, which no lane writes in the phase.
 // ---------------------------------------------------------------------------
 
 template <typename T, int N, typename S>
-__device__ __forceinline__ void chol_solve_team(const Team& tm, const S& s, T (*A)[N], T (*L)[N],
-                                                T* b, T* w, T* y) {
+__device__ __forceinline__ void chol_solve_team(const Team& tm, const S& s, T* A, T* L, T* b, T* w,
+                                                T* y) {
   constexpr int CP = (S::MAXCOL + LANES - 1) / LANES, UP = (S::MAXUPD + LANES - 1) / LANES;
   constexpr int BP = (S::MAXBACK + LANES - 1) / LANES;
   int e0 = ro(s.col_adr[0]), u0 = ro(s.upd_adr[0]);
   for (int c = 0; c < N; ++c) {
     const int e1 = ro(s.col_adr[c + 1]), u1 = ro(s.upd_adr[c + 1]);
-    int rows[CP > 0 ? CP : 1], rk[UP > 0 ? UP : 1];
+    // rows[p] and the position of (rows[p], c); rk[p] those of (r, c), (k, c), (r, k)
+    int rows[CP > 0 ? CP : 1], pos[CP > 0 ? CP : 1], rk[UP > 0 ? UP : 1];
+    const int pivot3 = c | (c << 10) | (c << 20);
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
       const int e = e0 + tm.lane + p * LANES;
       const int v = ro(s.col[e < S::NCOL_ALL ? e : S::NCOL_ALL - 1]);
-      rows[p] = e < e1 ? v : c;
+      rows[p] = e < e1 ? v & 255 : c;
+      pos[p] = e < e1 ? v >> 8 : c;
     }
 #pragma unroll
     for (int p = 0; p < UP; ++p) {
       const int u = u0 + tm.lane + p * LANES;
       const int v = ro(s.upd[u < S::NUPD_ALL ? u : S::NUPD_ALL - 1]);
-      rk[p] = u < u1 ? v : (c << 8) | c;
+      rk[p] = u < u1 ? v : pivot3;
     }
-    const T acc = A[c][c], bc = b[c];
+    const T acc = A[c], bc = b[c];
     T a_rc[CP > 0 ? CP : 1], b_r[CP > 0 ? CP : 1], a1[UP > 0 ? UP : 1], a2[UP > 0 ? UP : 1],
         at[UP > 0 ? UP : 1];
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
-      a_rc[p] = A[rows[p]][c];
+      a_rc[p] = A[pos[p]];
       b_r[p] = b[rows[p]];
     }
 #pragma unroll
     for (int p = 0; p < UP; ++p) {
-      const int r = rk[p] >> 8, k = rk[p] & 255;
-      a1[p] = A[r][c];
-      a2[p] = A[k][c];
-      at[p] = A[r][k];
+      a1[p] = A[rk[p] & 1023];
+      a2[p] = A[(rk[p] >> 10) & 1023];
+      at[p] = A[rk[p] >> 20];
     }
     const T d = sqrt(tmax(acc, T(1e-12)));
     const T inv = T(1) / d;
@@ -135,14 +151,14 @@ __device__ __forceinline__ void chol_solve_team(const Team& tm, const S& s, T (*
     for (int p = 0; p < CP; ++p)
       if (rows[p] != c) {
         const T l = a_rc[p] * inv;
-        L[rows[p]][c] = l;
+        L[pos[p]] = l;
         b[rows[p]] = b_r[p] - l * yc;
       }
 #pragma unroll
     for (int p = 0; p < UP; ++p)
-      if (rk[p] != ((c << 8) | c)) A[rk[p] >> 8][rk[p] & 255] = at[p] - (a1[p] * inv) * (a2[p] * inv);
+      if (rk[p] != pivot3) A[rk[p] >> 20] = at[p] - (a1[p] * inv) * (a2[p] * inv);
     if (tm.lane == 0) {
-      L[c][c] = d;
+      L[c] = d;
       w[c] = yc;
     }
     e0 = e1;
@@ -152,19 +168,20 @@ __device__ __forceinline__ void chol_solve_team(const Team& tm, const S& s, T (*
   int f1 = ro(s.back_adr[N]);
   for (int k = N - 1; k >= 0; --k) {
     const int f0 = ro(s.back_adr[k]);
-    int cols[BP > 0 ? BP : 1];
+    int cols[BP > 0 ? BP : 1], lpos[BP > 0 ? BP : 1];  // columns, and where (k, column) lies
 #pragma unroll
     for (int p = 0; p < BP; ++p) {
       const int e = f0 + tm.lane + p * LANES;
       const int v = ro(s.back[e < S::NBACK_ALL ? e : S::NBACK_ALL - 1]);
       cols[p] = e < f1 ? v : k;
+      lpos[p] = e < f1 ? N + e : k;
     }
-    const T wk = w[k], lkk = L[k][k];
+    const T wk = w[k], lkk = L[k];
     T w_c[BP > 0 ? BP : 1], l_kc[BP > 0 ? BP : 1];
 #pragma unroll
     for (int p = 0; p < BP; ++p) {
       w_c[p] = w[cols[p]];
-      l_kc[p] = L[k][cols[p]];
+      l_kc[p] = L[lpos[p]];
     }
     const T xk = wk / lkk;
 #pragma unroll
@@ -336,8 +353,8 @@ __device__ __forceinline__ T group_terms(int dim, const T* Dg, const T* et, cons
 // ---------------------------------------------------------------------------
 // The solve.
 //
-// Shared inputs: J (NEFC x NV; with lists, entries outside the rows' supports
-// are never read), M (NV x NV; likewise outside its mask), x (enters as
+// Shared inputs: J (NEFC x NV, or with lists its entries on the rows'
+// supports), M (NV x NV, or with lists its masked lower entries), x (enters as
 // qacc_smooth, leaves as qacc). D, aref and, where the policy has them, fl
 // and eta may lie in shared or global memory: each lane reads its own rows'
 // once. Shared scratch: A (lists only), L (NV x NV), b, w, y (NV), force,
@@ -359,11 +376,16 @@ constexpr int list_scratch_size() {
   return P::NGROUPS * (1 + P::NV);
 }
 
+// how a policy's matrices are passed: 2-D arrays (dense), or the values on
+// their static patterns (lists)
 template <typename P, typename T>
-__device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P::NV], const T* D,
-                                                  const T* aref, const T (*M)[P::NV], T* x_sh,
-                                                  T (*A)[P::NV], T (*L)[P::NV], T* b, T* w, T* y,
-                                                  T* force, T* quad_w, T tolerance,
+using SolveMat = std::conditional_t<P::DENSE, T (*)[P::NV], T*>;
+
+template <typename P, typename T>
+__device__ __forceinline__ void newton_solve_team(const Team& tm, SolveMat<P, const T> J, const T* D,
+                                                  const T* aref, SolveMat<P, const T> M, T* x_sh,
+                                                  SolveMat<P, T> A, SolveMat<P, T> L, T* b, T* w,
+                                                  T* y, T* force, T* quad_w, T tolerance,
                                                   const T* fl = nullptr, const T* eta = nullptr,
                                                   T* ds = nullptr, T* qfrc = nullptr) {
   constexpr int NV = P::NV, NEFC = P::NEFC, NG = P::NGROUPS;
@@ -405,7 +427,7 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
         const int e1 = ro(jrow_adr[r + 1]);
         for (int e = ro(jrow_adr[r]); e < e1; ++e) {
           const int i = ro(jrow_col[e]);
-          acc = acc + J[r][i] * x_sh[i];
+          acc = acc + J[e] * x_sh[i];
         }
       }
       acc = acc - aref[r];
@@ -455,7 +477,7 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
             const int e1 = ro(jrow_adr[r + 1]);
             for (int e = ro(jrow_adr[r]); e < e1; ++e) {
               const int i = ro(jrow_col[e]);
-              acc = acc + J[r][i] * x_sh[i];
+              acc = acc + J[e] * x_sh[i];
             }
           }
           acc = acc - aref[r];
@@ -500,16 +522,17 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
             if constexpr (P::DENSE) gg[6 * gi + kk] = g[kk];
           }
           if constexpr (!P::DENSE) {
-            // v = J_g' g on the group's support, by the group's lane
+            // v = J_g' g on the group's support, by the group's lane; the
+            // group's rows follow each other, each on that support
             const short* jrow_adr = P::jrow_adr();
             const short* jrow_col = P::jrow_col();
-            const int e1 = ro(jrow_adr[grow0[s] + 1]);
-            for (int e = ro(jrow_adr[grow0[s]]); e < e1; ++e) {
+            const int e0 = ro(jrow_adr[grow0[s]]), e1 = ro(jrow_adr[grow0[s] + 1]);
+            for (int e = e0; e < e1; ++e) {
               const int i = ro(jrow_col[e]);
               T v = T(0);
 #pragma unroll
               for (int kk = 0; kk < 6; ++kk)
-                if (kk < gdim[s]) v = v + J[grow0[s] + kk][i] * g[kk];
+                if (kk < gdim[s]) v = v + J[e + kk * (e1 - e0)] * g[kk];
               gv[NV * gi + i] = v;
             }
           }
@@ -625,12 +648,12 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
     } else {
       const short* jrow_adr = P::jrow_adr();
       const short* jrow_col = P::jrow_col();
-      const short* jcol_adr = P::jcol_adr();
-      const short* jcol_row = P::jcol_row();
-      const short* mrow_adr = P::mrow_adr();
-      const short* mrow_col = P::mrow_col();
-      const short* hrow_adr = P::hrow_adr();
-      const short* hrow = P::hrow();
+      const int* jcol_at = P::jcol_at();
+      const int* jcol_row = P::jcol_row();
+      const int* mrow_at = P::mrow_at();
+      const int* mrow_col = P::mrow_col();
+      const int* hrow_at = P::hrow_at();
+      const unsigned* hrow = P::hrow();
       const auto& hf = P::hfac();
       constexpr int NHENT = sizeof(hf.ent) / sizeof(hf.ent[0]);
       // -gradient into b and the Hessian M + J' diag(quad_w) J into A, both in
@@ -640,22 +663,22 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
         const int i = tm.lane + k * LANES;
         if (i < NV) {
           T g = T(0);
-          const int e1 = ro(jcol_adr[i + 1]);
-          for (int e = ro(jcol_adr[i]); e < e1; ++e) {
-            const int r = ro(jcol_row[e]);
-            g = g + J[r][i] * force[r];
+          const int at = ro(jcol_at[i]);
+          for (int e = at & 0xffff, e1 = e + LIST_STRIDE * (at >> 16); e < e1; e += LIST_STRIDE) {
+            const int v = ro(jcol_row[e]);
+            g = g + J[v >> 8] * force[v & 255];
           }
           b[NV - 1 - i] = -(Mdx[k] - g);
         }
       }
       for (int e = tm.lane; e < NHENT; e += LANES) {
-        const int rc = ro(hf.ent[e]), r = rc >> 8, c = rc & 255;
+        const int v = ro(hf.ent[e]), r = (v >> 8) & 255, c = v & 255, m_at = ro(hf.ent_inm[e]);
         const int i = NV - 1 - c, j = NV - 1 - r;  // dofs, i >= j
-        T h = ro(hf.ent_inm[e]) ? M[i][j] : T(0);
-        const int q1 = ro(hrow_adr[e + 1]);
-        for (int q = ro(hrow_adr[e]); q < q1; ++q) {
-          const int row = ro(hrow[q]);
-          h = h + (quad_w[row] * J[row][i]) * J[row][j];
+        T h = m_at >= 0 ? M[m_at] : T(0);
+        const int at = ro(hrow_at[e]);
+        for (int q = at & 0xffff, q1 = q + LIST_STRIDE * (at >> 16); q < q1; q += LIST_STRIDE) {
+          const unsigned hv = ro(hrow[q]);
+          h = h + (quad_w[hv & 255] * J[(hv >> 8) & 4095]) * J[hv >> 20];
         }
         if constexpr (NG > 0) {
           const short* hgrp_adr = P::hgrp_adr();
@@ -666,7 +689,7 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
             h = h + gk[g] * gv[NV * g + i] * gv[NV * g + j];
           }
         }
-        A[r][c] = h;
+        A[v >> 16] = h;
       }
       tm.sync();
 
@@ -678,10 +701,10 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
         if (i < NV) {
           p[k] = y[NV - 1 - i];
           T acc = T(0);
-          const int e1 = ro(mrow_adr[i + 1]);
-          for (int e = ro(mrow_adr[i]); e < e1; ++e) {
-            const int j = ro(mrow_col[e]);
-            acc = acc + M[i][j] * y[NV - 1 - j];
+          const int at = ro(mrow_at[i]);
+          for (int e = at & 0xffff, e1 = e + LIST_STRIDE * (at >> 16); e < e1; e += LIST_STRIDE) {
+            const int v = ro(mrow_col[e]);
+            acc = acc + M[v >> 8] * y[NV - 1 - (v & 255)];
           }
           Mp[k] = acc;
         }
@@ -694,7 +717,7 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
           const int e1 = ro(jrow_adr[r + 1]);
           for (int e = ro(jrow_adr[r]); e < e1; ++e) {
             const int i = ro(jrow_col[e]);
-            acc = acc + J[r][i] * y[NV - 1 - i];
+            acc = acc + J[e] * y[NV - 1 - i];
           }
         }
         jv[k] = acc;
@@ -710,7 +733,7 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
               const int e1 = ro(jrow_adr[r + 1]);
               for (int e = ro(jrow_adr[r]); e < e1; ++e) {
                 const int i = ro(jrow_col[e]);
-                acc = acc + J[r][i] * y[NV - 1 - i];
+                acc = acc + J[e] * y[NV - 1 - i];
               }
             }
             gjv[s][kk] = acc;
@@ -837,12 +860,12 @@ __device__ __forceinline__ void newton_solve_team(const Team& tm, const T (*J)[P
 #pragma unroll 4
           for (int r = 0; r < NEFC; ++r) acc = acc + J[r][i] * force[r];
         } else {
-          const short* jcol_adr = P::jcol_adr();
-          const short* jcol_row = P::jcol_row();
-          const int e1 = ro(jcol_adr[i + 1]);
-          for (int e = ro(jcol_adr[i]); e < e1; ++e) {
-            const int r = ro(jcol_row[e]);
-            acc = acc + J[r][i] * force[r];
+          const int* jcol_at = P::jcol_at();
+          const int* jcol_row = P::jcol_row();
+          const int at = ro(jcol_at[i]);
+          for (int e = at & 0xffff, e1 = e + LIST_STRIDE * (at >> 16); e < e1; e += LIST_STRIDE) {
+            const int v = ro(jcol_row[e]);
+            acc = acc + J[v >> 8] * force[v & 255];
           }
         }
         qfrc[i] = acc;

@@ -62,6 +62,7 @@ PAIR_KINDS = {
 _CSRC = cuda_build.CSRC
 _INCLUDES = ("lane_math.cuh", "model_consts.cuh", "newton_solve_team.cuh")
 LANES = 32  # lanes a sample (csrc/newton_solve_team.cuh); 16 is built for timing only
+LIST_STRIDE = 32  # the interleaving of the lists a lane walks alone (csrc/newton_solve_team.cuh)
 
 OUTPUT_NAMES = (
     "qpos", "qvel", "site_xpos", "site_xmat", "x_pos", "x_rot",
@@ -236,27 +237,59 @@ def _csr(lists) -> tuple:
     return adr, flat
 
 
-def _factor_schedule(pat: np.ndarray, mask_elim: np.ndarray) -> dict:
+def _interleaved(lists) -> tuple:
+    """Lists that one lane walks each, interleaved so that the lanes of a warp,
+    on lists k, k + 1, ..., read adjacent words at every step: lists come in
+    blocks of LIST_STRIDE, and list k's item q lies at start_k + LIST_STRIDE q,
+    start_k = its block's base + k % LIST_STRIDE. -> (``at``: start_k |
+    len_k << 16 for each list; the items, 0 in the holes)."""
+    at, flat = [], []
+    for b in range(0, len(lists), LIST_STRIDE):
+        block = lists[b : b + LIST_STRIDE]
+        base = len(flat)
+        flat += [0] * (LIST_STRIDE * max(len(x) for x in block))
+        for k, x in enumerate(block):
+            at.append((base + k) | (len(x) << 16))
+            for q, v in enumerate(x):
+                flat[base + k + LIST_STRIDE * q] = v
+    if len(flat) > 0xFFFF or any(len(x) > 0x7FFF for x in lists):
+        raise NotImplementedError("CUDA step kernel: an interleaved list of more than 65,535 words")
+    return np.array(at, dtype=np.int64), np.array(flat, dtype=np.int64)
+
+
+def _factor_schedule(pat: np.ndarray, m_at) -> dict:
     """The right-looking Cholesky of a pattern in elimination order, as lists.
 
-    ``ent``: the pattern's lower entries, packed ``r << 8 | c`` (r >= c), and
-    ``ent_inm`` whether each lies in the factored matrix's own mask (else it
-    is fill and starts at zero). Column c: ``col`` the rows r > c of its
-    entries, ``upd`` the trailing updates ``A[r][k] -= L[r][c] L[k][c]``
-    (r >= k > c, packed ``r << 8 | k``), ``back`` the columns c < k of row k
-    for the backward sweep.
+    The factored matrix and its factor are stored on the pattern alone: the
+    diagonal entry of row k at position k, then each row's entries left of
+    the diagonal at n + their place in ``back`` (``pos``). ``ent``: the
+    pattern's lower entries, packed ``pos << 16 | r << 8 | c`` (r >= c), and
+    ``ent_inm`` the position in M's storage of each (``m_at`` of the
+    elimination-order entry), or -1 where it lies outside M's mask (fill, or
+    a Hessian entry M never holds: it starts at zero). Column c: ``col`` the
+    rows r > c of its entries (packed ``r | pos(r, c) << 8``), ``upd`` the
+    trailing updates ``A[r][k] -= L[r][c] L[k][c]`` (r >= k > c, packed
+    ``pos(r, c) | pos(k, c) << 10 | pos(r, k) << 20``). Row k: ``back`` the
+    columns c < k of its entries, for the backward sweep.
     """
     n = pat.shape[0]
     ent = [(r, c) for c in range(n) for r in range(c, n) if pat[r, c]]
+    if len(ent) > 1024:
+        raise NotImplementedError("CUDA step kernel: a factor of more than 1024 entries")
     below = [[r for r in range(c + 1, n) if pat[r, c]] for c in range(n)]
-    upd = [[(r << 8) | k for k in below[c] for r in below[c] if r >= k] for c in range(n)]
     back = [[c for c in range(k) if pat[k, c]] for k in range(n)]
-    col_adr, col = _csr(below)
-    upd_adr, upd = _csr(upd)
     back_adr, back = _csr(back)
+    pos = {(c, c): c for c in range(n)}
+    for k in range(n):
+        for e in range(int(back_adr[k]), int(back_adr[k + 1])):
+            pos[(k, int(back[e]))] = n + e
+    col_adr, col = _csr([[r | (pos[(r, c)] << 8) for r in below[c]] for c in range(n)])
+    upd = [[pos[(r, c)] | (pos[(k, c)] << 10) | (pos[(r, k)] << 20)
+            for k in below[c] for r in below[c] if r >= k] for c in range(n)]
+    upd_adr, upd = _csr(upd)
     return dict(
-        ent=np.array([(r << 8) | c for r, c in ent], dtype=np.int64),
-        ent_inm=np.array([int(mask_elim[r, c]) for r, c in ent], dtype=np.int64),
+        ent=np.array([(pos[(r, c)] << 16) | (r << 8) | c for r, c in ent], dtype=np.int64),
+        ent_inm=np.array([m_at(r, c) for r, c in ent], dtype=np.int64),
         col_adr=col_adr, col=col, upd_adr=upd_adr, upd=upd, back_adr=back_adr, back=back,
     )
 
@@ -287,34 +320,72 @@ def team_tables(m: Model) -> tuple:
     dact_adr, dact = _csr([[u for u in range(m.nu) if act_dof[u] == i] for i in range(nv)])
 
     mm, sup = lay["m_mask"], lay["j_sup"]
-    ment = [(i << 8) | j for i in range(nv) for j in range(i + 1) if mm[i, j]]
-    mrow_adr, mrow_col = _csr([[j for j in range(nv) if mm[i, j]] for i in range(nv)])
+    # M is stored on its masked lower entries, in ment's order: both (i, j)
+    # and (j, i) read the entry of (max, min)
+    ment_ij = [(i, j) for i in range(nv) for j in range(i + 1) if mm[i, j]]
+    m_pos = {ij: k for k, ij in enumerate(ment_ij)}
+
+    def m_at(i, j):
+        return m_pos[(max(i, j), min(i, j))] if mm[i, j] else -1
+
+    ment = [(i << 8) | j for i, j in ment_ij]
+    # M's symmetric rows, a lane's each: j | its position in M << 8
+    mrow_at, mrow_col = _interleaved([[j | (m_at(i, j) << 8) for j in range(nv) if mm[i, j]] for i in range(nv)])
+    # J is stored on its rows' supports in row order: entry (r, i) at its place
+    # in jrow_col; a row of friction loss or of a limit has one entry, and these
+    # rows come first, so such a row r is at position r
     jrow_adr, jrow_col = _csr([list(np.flatnonzero(r)) for r in sup])
-    jcol_adr, jcol_row = _csr([list(np.flatnonzero(sup[:, i])) for i in range(nv)])
+    j_pos = {(r, int(jrow_col[e])): e for r in range(sup.shape[0])
+             for e in range(int(jrow_adr[r]), int(jrow_adr[r + 1]))}
+    n_one = len(lay["fric_dof"]) + len(lay["limit_jnt"])
+    assert all(j_pos.get((r, int(jrow_col[r]))) == r for r in range(n_one))
+    if len(jrow_col) > 4096:
+        raise NotImplementedError("CUDA step kernel: more than 4096 entries of J")
+    # the rows that can reach each dof, a lane's each: row | the position of
+    # J[row][dof] << 8
+    jcol_at, jcol_row = _interleaved([[r | (j_pos[(r, i)] << 8) for r in np.flatnonzero(sup[:, i])]
+                                      for i in range(nv)])
     # cpair packs slot << 10 | side << 8 | dof: 6 bits of slot, 8 of dof
     if m.ncon > 64:
         raise NotImplementedError("CUDA step kernel: more than 64 contact slots")
-    cpair = []
+    cpair, con_cadr = [], []
     for slot, (b1, b2) in enumerate(zip(lay["con_body1"], lay["con_body2"])):
+        con_cadr.append(len(cpair))
         for i in range(nv):
             side = int(lay["chain_mask"][b1][i]) | (int(lay["chain_mask"][b2][i]) << 1)
             if side:
                 cpair.append((slot << 10) | (side << 8) | i)
+    # the contact Jacobians, rows of three values: Jn, Jt1, Jt2 of cpair q at
+    # row q, and at a condim-6 slot the rotational ones at row q +
+    # con_jrot[slot], after every cpair's row (-1: no rotational rows)
+    con_jrot, n_rot = [], 0
+    for slot, adr in enumerate(con_cadr):
+        if lay["con_rot"][slot] < 0:
+            con_jrot.append(-1)
+        else:
+            con_jrot.append(len(cpair) + n_rot - adr)
+            n_rot += (con_cadr + [len(cpair)])[slot + 1] - adr
 
-    mf = _factor_schedule(lay["m_pat"], mm[::-1, ::-1])
+    mf = _factor_schedule(lay["m_pat"], lambda r, c: m_at(nv - 1 - c, nv - 1 - r))
     # the Hessian starts as M (the rows' terms are added to it), so the entries
     # outside M's mask start at zero: contacts between two moving bodies reach
     # entries between their chains that M never holds
-    hf = _factor_schedule(lay["h_pat"], mm[::-1, ::-1])
+    hf = _factor_schedule(lay["h_pat"], lambda r, c: m_at(nv - 1 - c, nv - 1 - r))
     hrows = []
-    for rc in hf["ent"]:
-        i, j = nv - 1 - (rc >> 8), nv - 1 - (rc & 255)
+    for v in hf["ent"]:
+        i, j = nv - 1 - (v & 255), nv - 1 - ((v >> 8) & 255)
         hrows.append([r for r in range(sup.shape[0]) if sup[r, i] and sup[r, j]])
     # the entries reached by the most rows first, so that a pass of the lanes
     # over the list holds entries of about the same length
     order = sorted(range(len(hrows)), key=lambda e: -len(hrows[e]))
     hf["ent"], hf["ent_inm"] = hf["ent"][order], hf["ent_inm"][order]
-    hrow_adr, hrow = _csr([hrows[e] for e in order])
+    # a lane's each; each row: row | the positions of J[row][i] << 8 and of
+    # J[row][j] << 20
+    hrow_at, hrow = _interleaved([
+        [r | (j_pos[(r, nv - 1 - (hf["ent"][k] & 255))] << 8)
+         | (j_pos[(r, nv - 1 - ((hf["ent"][k] >> 8) & 255))] << 20) for r in hrows[e]]
+        for k, e in enumerate(order)
+    ])
     # the elliptic groups whose rank-1 Hessian term reaches each entry (a
     # group's rows share one support: its first row's)
     hgrp_adr, hgrp = _csr([
@@ -323,10 +394,10 @@ def team_tables(m: Model) -> tuple:
     ])
     out = dict(
         level_adr=level_adr, level_body=level_body, child_adr=child_adr, child_body=child_body,
-        dof_jnt=dof_jnt, dact_adr=dact_adr, dact=dact, ment=ment, mrow_adr=mrow_adr,
-        mrow_col=mrow_col, jrow_adr=jrow_adr, jrow_col=jrow_col, jcol_adr=jcol_adr,
-        jcol_row=jcol_row, cpair=cpair, hrow_adr=hrow_adr, hrow=hrow,
-        hgrp_adr=hgrp_adr, hgrp=hgrp,
+        dof_jnt=dof_jnt, dact_adr=dact_adr, dact=dact, ment=ment, mrow_at=mrow_at,
+        mrow_col=mrow_col, jrow_adr=jrow_adr, jrow_col=jrow_col, jcol_at=jcol_at,
+        jcol_row=jcol_row, cpair=cpair, con_cadr=con_cadr, con_jrot=con_jrot,
+        hrow_at=hrow_at, hrow=hrow, hgrp_adr=hgrp_adr, hgrp=hgrp,
     )
     out.update({f"mf_{k}": v for k, v in mf.items()})
     out.update({f"hf_{k}": v for k, v in hf.items()})
@@ -334,7 +405,8 @@ def team_tables(m: Model) -> tuple:
     # the longest column, update list and row of each factor: a lane's passes
     longest = {f"{f}_MAX{part.upper()}": int(np.diff(out[f"{f}_{part}_adr"]).max())
                for f in ("mf", "hf") for part in ("col", "upd", "back")}
-    return out, dict(NLEVEL=nlevel, **longest)
+    # rows of the contact Jacobians' storage
+    return out, dict(NLEVEL=nlevel, NCJAC=len(cpair) + n_rot, **longest)
 
 
 def _c_init(a, integer: bool) -> str:
@@ -403,7 +475,7 @@ def render_constants_header(m: Model) -> str:
         act_affine=[int(bt == 1) for bt in m.actuator_biastype],
         act_ctrllimited=(r(m.actuator_ctrllimited) > 0).astype(np.int64),
         act_forcelimited=(r(m.actuator_forcelimited) > 0).astype(np.int64),
-        crow=lay["crow"], con_rot=lay["con_rot"],
+        crow=lay["crow"],
         group_row0=[g[0] for g in groups], group_dim=[g[1] for g in groups],
     )
     tables, team_sizes = team_tables(m)
@@ -719,7 +791,7 @@ def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
         raise ValueError(f"model is on {m.device}, inputs on {qpos.device}")
     lib = load_library(m)
     fn = lib.fn(qpos.dtype)
-    lib.launch_shape(qpos.dtype)  # raises if a sample's working set does not fit a block
+    teams_per_sm = lib.teams_per_sm(qpos.dtype)  # raises if a working set does not fit a block
     B = qpos.shape[0]
     # sample-major: one contiguous row a sample, read and written by its team
     packed_in = torch.cat([qpos, qvel, ctrl], dim=1)
@@ -730,10 +802,23 @@ def step_core(m: Model, qpos, qvel, ctrl, n_steps: int = 1):
     if err != 0:
         raise RuntimeError(f"CUDA step kernel: launch failed with cudaError {err}")
     step_core.launches += 1
+    # the waves of teams the launch takes: the samples over what the card holds at once
+    step_core.waves = -(-B // (teams_per_sm * _sm_count(qpos.device)))
     return _split_outputs(m, packed_out)
 
 
 step_core.launches = 0
+step_core.waves = 0  # of the last launch
+
+
+_SM_COUNT: dict = {}  # device index -> streaming multiprocessors
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def step_core_reference(m: Model, qpos, qvel, ctrl, n_steps: int = 1, solve=solve_reference):

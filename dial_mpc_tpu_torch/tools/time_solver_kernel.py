@@ -15,7 +15,8 @@ that exports ``solver_sample_major`` takes the seven (B, ...) inputs and two
 (a, b, b, a), and compare only within that call. Prints one JSON line with the
 card's name and power limit and, for a sample-major library, a hash of each
 type's outputs at B = 2049 (two checkouts that compute the same bits print
-the same hash).
+the same hash) and, where ``cuobjdump`` is installed, a hash of the library's
+machine code.
 """
 
 import argparse
@@ -29,6 +30,7 @@ import torch
 
 from dial_mpc_tpu_torch.physics import forward, make_data, put_model, solver, solver_cuda, step
 from dial_mpc_tpu_torch.physics.compiled_model import load_scene
+from dial_mpc_tpu_torch.tools.time_step_kernel import sass_hash
 
 B = 2049
 
@@ -95,6 +97,7 @@ def main():
                     b"".join(t.cpu().numpy().tobytes() for t in outs)).hexdigest()[:16]
         out["sample_major"] = sample_major
         out["lanes"] = getattr(lib, "lanes", 1)
+        out["sass_sha256"] = sass_hash(lib.path)
     out["card"] = subprocess.run(
         "nvidia-smi --query-gpu=name,power.limit --format=csv,noheader",
         shell=True, capture_output=True, text=True,

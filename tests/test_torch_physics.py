@@ -570,8 +570,8 @@ def test_hessian_schedule_starts_from_m(key):
     outside = 0
     entries = set()
     for e, (rc, inm) in enumerate(zip(tables["hf_ent"], tables["hf_ent_inm"])):
-        i, j = nv - 1 - (rc & 255), nv - 1 - (rc >> 8)
-        assert bool(inm) == bool(mm[i, j])
+        i, j = nv - 1 - (rc & 255), nv - 1 - ((rc >> 8) & 255)
+        assert (inm >= 0) == bool(mm[i, j])
         outside += not mm[i, j]
         entries.add((i, j))
         # the elliptic groups whose rank-1 term reaches this entry: those whose
@@ -589,6 +589,184 @@ def test_hessian_schedule_starts_from_m(key):
     # contacts between two moving bodies: the H1's hands, knees and torso on
     # the sliding crate; the Allegro's ball on its fingers, fingers on fingers
     assert (outside > 0) == (key in ("h1_push_crate", "allegro"))
+
+
+def _factor_positions(tables, f, n):
+    """(r, c) -> storage position of factor schedule f's entries, rebuilt from
+    its row lists: the diagonal of row k at k, the entries left of it at n +
+    their place in back."""
+    pos = {(k, k): k for k in range(n)}
+    adr, back = tables[f"{f}_back_adr"], tables[f"{f}_back"]
+    for k in range(n):
+        for e in range(adr[k], adr[k + 1]):
+            pos[(k, int(back[e]))] = n + e
+    return pos
+
+
+def _walk(tables, name, k):
+    """Item k of a list that a lane walks alone (``name``, with ``name_at``),
+    read as the kernel reads it: s, s + LIST_STRIDE, ... where the ``at``
+    word is s | n << 16; the lists of a block of LIST_STRIDE start at adjacent
+    words, so that a warp's lanes read one line at each step."""
+    at = int(tables[name.split("_")[0] + "_at"][k])
+    s, n, w = at & 0xFFFF, at >> 16, engine_cuda.LIST_STRIDE
+    assert s % w == k % w and s - k % w == int(tables[name.split("_")[0] + "_at"][k - k % w]) & 0xFFFF
+    return list(tables[name][s : s + w * n : w])
+
+
+@pytest.mark.parametrize("key", list(SCENES))
+def test_packed_lists_name_the_dense_entries(key):
+    """Each list item that names a matrix entry carries its position in the
+    working set's packed storage (J on its rows' supports, M on its masked
+    lower entries, a factor on its pattern, the contact Jacobians a row of
+    three a contact-dof pair); rebuilt into the dense (row, dof) or (r, c)
+    it stands for, each names the entry the dense layout named. Every packed
+    array is a one-to-one map of its entries, so that nothing aliases."""
+    tm = _models(key)[2]
+    lay = engine_cuda.static_layout(tm)
+    tables, sizes = engine_cuda.team_tables(tm)
+    nv, sup, mm = tm.nv, lay["j_sup"], lay["m_mask"]
+    jadr, jcol = tables["jrow_adr"], tables["jrow_col"]
+
+    def j_entry(pos):  # packed position of J -> (row, dof)
+        row = int(np.searchsorted(jadr, pos, side="right")) - 1
+        return row, int(jcol[pos])
+
+    ment = [(int(v) >> 8, int(v) & 255) for v in tables["ment"]]
+    assert len(set(ment)) == len(ment) == int(np.tril(mm).sum())
+    # J: row r's entries are its support in dof order; the one-entry rows of
+    # friction loss and limits first, at position r
+    for r in range(sup.shape[0]):
+        assert [j_entry(e) for e in range(jadr[r], jadr[r + 1])] == [(r, int(i)) for i in np.flatnonzero(sup[r])]
+    n_one = len(lay["fric_dof"]) + len(lay["limit_jnt"])
+    assert all(jadr[r] == r and jadr[r + 1] == r + 1 for r in range(n_one))
+    # the rows that reach each dof (gradient, J' force)
+    for i in range(nv):
+        items = _walk(tables, "jcol_row", i)
+        assert [j_entry(int(v) >> 8) for v in items] == [(int(r), i) for r in np.flatnonzero(sup[:, i])]
+        assert [int(v) & 255 for v in items] == list(np.flatnonzero(sup[:, i]))
+    # M's symmetric rows read the lower entry of (max, min)
+    for i in range(nv):
+        items = _walk(tables, "mrow_col", i)
+        assert [int(v) & 255 for v in items] == list(np.flatnonzero(mm[i]))
+        assert [ment[int(v) >> 8] for v in items] == [(max(i, j), min(i, j)) for j in np.flatnonzero(mm[i])]
+    # the factor schedules: positions a bijection onto the entries; ent,
+    # ent_inm, col, upd and back name the dense entries
+    for f, pat in (("mf", lay["m_pat"]), ("hf", lay["h_pat"])):
+        pos = _factor_positions(tables, f, nv)
+        assert sorted(pos.values()) == list(range(int(np.tril(pat).sum()))) == list(range(len(tables[f"{f}_ent"])))
+        for v, inm in zip(tables[f"{f}_ent"], tables[f"{f}_ent_inm"]):
+            r, c = (int(v) >> 8) & 255, int(v) & 255
+            assert pat[r, c] and r >= c and int(v) >> 16 == pos[(r, c)]
+            i, j = nv - 1 - c, nv - 1 - r
+            assert (inm >= 0) == bool(mm[i, j]) and (inm < 0 or ment[inm] == (i, j))
+        for c in range(nv):
+            below = [r for r in range(c + 1, nv) if pat[r, c]]
+            col = tables[f"{f}_col"][tables[f"{f}_col_adr"][c] : tables[f"{f}_col_adr"][c + 1]]
+            assert [(int(v) & 255, int(v) >> 8) for v in col] == [(r, pos[(r, c)]) for r in below]
+            upd = tables[f"{f}_upd"][tables[f"{f}_upd_adr"][c] : tables[f"{f}_upd_adr"][c + 1]]
+            want = [(pos[(r, c)], pos[(k, c)], pos[(r, k)]) for k in below for r in below if r >= k]
+            assert [(int(v) & 1023, (int(v) >> 10) & 1023, int(v) >> 20) for v in upd] == want
+        for k in range(nv):
+            back = tables[f"{f}_back"][tables[f"{f}_back_adr"][k] : tables[f"{f}_back_adr"][k + 1]]
+            assert list(back) == [c for c in range(k) if pat[k, c]]
+    # the rows that reach both dofs of each Hessian entry, with both J positions
+    for e, v in enumerate(tables["hf_ent"]):
+        i, j = nv - 1 - (int(v) & 255), nv - 1 - ((int(v) >> 8) & 255)
+        items = _walk(tables, "hrow", e)
+        rows = [r for r in range(sup.shape[0]) if sup[r, i] and sup[r, j]]
+        assert [int(h) & 255 for h in items] == rows
+        assert [j_entry((int(h) >> 8) & 4095) for h in items] == [(r, i) for r in rows]
+        assert [j_entry(int(h) >> 20) for h in items] == [(r, j) for r in rows]
+    # the contact Jacobians: a slot's pairs follow its rows' support in dof
+    # order (a row's k-th entry reads pair con_cadr[slot] + k), and the
+    # condim-6 slots' rotational rows lie after every pair's, one each
+    cpair, cadr, jrot = tables["cpair"], tables["con_cadr"], tables["con_jrot"]
+    rows_of_slot = {}
+    for r, (slot, _, _) in enumerate(engine_cuda.contact_rows(tm), start=n_one):
+        rows_of_slot.setdefault(slot, []).append(r)
+    rot_rows = []
+    for slot in range(tm.ncon):
+        end = cadr[slot + 1] if slot + 1 < tm.ncon else len(cpair)
+        assert all(int(v) >> 10 == slot for v in cpair[cadr[slot] : end])
+        dofs = [int(v) & 255 for v in cpair[cadr[slot] : end]]
+        for r in rows_of_slot[slot]:
+            assert dofs == [j_entry(e)[1] for e in range(jadr[r], jadr[r + 1])]
+        assert (jrot[slot] >= 0) == (lay["con_rot"][slot] >= 0)
+        if jrot[slot] >= 0:
+            rot_rows += [q + jrot[slot] for q in range(cadr[slot], end)]
+    assert sorted(rot_rows) == list(range(len(cpair), sizes["NCJAC"]))
+    # an elliptic group's rows follow each other on one support: row kk of
+    # the group starts kk supports after its first
+    for row0, dim in lay["groups"]:
+        n = jadr[row0 + 1] - jadr[row0]
+        assert all(jadr[row0 + kk] == jadr[row0] + kk * n for kk in range(dim + 1))
+
+
+# the team's shared memory of the parent layout (the matrices dense), by key,
+# float32 / float64: the packed layout must never need more
+_DENSE_TEAM_BYTES = {"go2": (9308, 18616), "h1_walk": (15692, 31384), "h1_loco": (12012, 24024),
+                     "go2_crate": (41612, 83224), "h1_push_crate": (40360, 80720), "allegro": (24968, 49936)}
+# 16 teams of the Allegro an SM: four blocks of four, each 4 x team + 1 KB
+# reserved, in an H100 SM's 232,448 bytes (14,272 a team), with a margin
+_ALLEGRO_F32_TEAM_MAX = 13000
+
+
+def _packed_team_values(tm):
+    """Values of one sample's working set (StepShared) as its list lengths
+    imply: what lives through the step, and the larger member of the union
+    (the smooth dynamics', or the solves' with the contact Jacobians)."""
+    lay = engine_cuda.static_layout(tm)
+    tables, sizes = engine_cuda.team_tables(tm)
+    one = lambda n: max(int(n), 1)
+    nq, nv, nb, nefc = tm.nq, tm.nv, tm.nbody, lay["j_sup"].shape[0]
+    ncon = one(tm.ncon)
+    kept = (nq + nv + one(tm.nu) + nb * (3 + 4 + 3 + 6) + nv * 6 + len(tables["ment"]) + 2 * nv
+            + 4 * ncon + one(len(tables["jrow_col"])) + 2 * one(nefc))
+    smooth = tm.njnt * 6 + nb * (3 + 36 + 6 + 6) + nv * 12
+    nfac = max(len(tables["hf_ent"]), len(tables["mf_ent"]))
+    solves = 2 * nfac + 3 * nv + 2 * one(nefc) + 9 * ncon + 3 * one(sizes["NCJAC"])
+    return kept + max(smooth, solves)
+
+
+@pytest.fixture(scope="module")
+def packed_team_bytes(tmp_path_factory):
+    """key -> (float32, float64) bytes of StepShared, each held by a host
+    compile of the kernel's source to the value its list lengths imply."""
+    cache = {}
+
+    def get(key):
+        if key not in cache:
+            tm = _models(key)[2]
+            d = tmp_path_factory.mktemp(f"layout_{key}")
+            cmd = _gxx_cmd(d)
+            _write_host_sources(tm, d)
+            n = _packed_team_values(tm)
+            (d / "layout.cpp").write_text(
+                '#include "engine_step_nolaunch.cu"\n'
+                f"static_assert(sizeof(StepShared<float>) == {4 * n}, \"float32 working set\");\n"
+                f"static_assert(sizeof(StepShared<double>) == {8 * n}, \"float64 working set\");\n"
+            )
+            r = subprocess.run([*cmd, "-fsyntax-only", str(d / "layout.cpp")], capture_output=True, text=True)
+            assert r.returncode == 0, r.stderr[-4000:]
+            cache[key] = (4 * n, 8 * n)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("key", list(SCENES))
+def test_team_working_set_is_packed(key, dtype, packed_team_bytes):
+    """The team's shared memory is what the static patterns' list lengths
+    imply (a matrix stored dense again fails here), never more than the
+    dense layout's, and at the Allegro key in float32 small enough for 16
+    teams an SM."""
+    k = 0 if dtype == "float32" else 1
+    got = packed_team_bytes(key)[k]
+    assert got <= _DENSE_TEAM_BYTES[key][k]
+    if key == "allegro" and dtype == "float32":
+        assert got <= _ALLEGRO_F32_TEAM_MAX
 
 
 def test_unported_physics_branches_raise():
